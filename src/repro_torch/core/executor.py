@@ -1,0 +1,476 @@
+"""Memory-aware execution of an :class:`ExecutionPlan` (paper §4.3–4.5).
+
+Tree subgraph counting is memory bounded: at k >= 12 the ``C(k,t) x N``
+count tables dominate the footprint, so the executor treats memory as a
+managed resource instead of keeping every plan-node table (and every cached
+SpMM result) alive for the whole bottom-up walk. Three cooperating pieces:
+
+* **Liveness** (:func:`liveness`): for a given evaluation order, the last
+  use of every node table and every ``y_cache`` SpMM entry is computed
+  statically; :class:`PlanExecutor` drops each buffer at its last use, so
+  the walk holds only the live frontier of the DP, not the whole history.
+* **Scheduling** (:func:`compute_schedule`): the post-order plan admits many
+  valid bottom-up orders. A greedy list scheduler picks, among the nodes
+  whose children are ready, the one minimizing the step's modeled peak
+  (Sethi–Ullman's "heavier subtree first" generalized to the dedup DAG);
+  the better of {greedy, program order} is kept.
+* **Analytic memory model** (:func:`peak_table_bytes` /
+  :func:`pick_execution`): simulates the scheduled walk in units of table
+  rows and turns a single ``memory_budget_bytes`` knob into the coloring
+  batch size.
+
+This module follows the JAX package's ``core/executor.py`` for the walks
+the port runs: y-cached SpMM -> eMA nodes and singleton fused nodes. It
+leaves out what only unported paths use — colorset chunking, shared-passive
+groups, cache-less (FASCIA) walks and the kept roots of multi-template
+plans — which come over with their slices (ROADMAP.md). One more change:
+:meth:`PlanExecutor._live_bytes` sizes torch tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from math import comb
+
+import numpy as np
+
+from repro_torch.obs import tracing as _tracing
+
+__all__ = [
+    "Schedule", "ExecutionChoice", "PlanExecutor",
+    "liveness", "compute_schedule", "simulate_peak_rows",
+    "peak_table_bytes", "pick_execution",
+    "DEFAULT_MEMORY_BUDGET_BYTES", "MAX_AUTO_BATCH",
+]
+
+# Default budget when the caller gives none: generous enough that small
+# problems batch freely, finite so huge plans still get a managed schedule.
+DEFAULT_MEMORY_BUDGET_BYTES = 1 << 30
+# Ceiling on the budget-derived coloring batch (diminishing returns past
+# this; keeps first-call latency bounded for tiny graphs).
+MAX_AUTO_BATCH = 64
+
+
+# --------------------------------------------------------------------------
+# schedule representation
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A validated evaluation order plus static liveness for one plan.
+
+    ``order``
+        Topological order over *all* node indices (leaves included); the
+        root is necessarily last (every plan node is in the root's cone).
+    ``free_tables[s]`` / ``free_y[s]``
+        Node-table indices / y-cache keys that are dead after step ``s``
+        (the step evaluating ``order[s]``) and are dropped there.
+    ``fused``
+        Internal nodes whose SpMM -> eMA pair runs as ONE fused CUDA
+        kernel (``kernels/fused``): the passive child table is consumed
+        directly tile-by-tile and the ``C(k,t_p) x N`` neighbor-sum table is
+        never materialized — the model charges such a step no y rows at all.
+        Fused nodes bypass the y-cache.
+    """
+
+    order: tuple[int, ...]
+    free_tables: tuple[tuple[int, ...], ...]
+    free_y: tuple[tuple[int, ...], ...]
+    fused: tuple[int, ...] = ()
+
+    @property
+    def fused_set(self) -> frozenset[int]:
+        return frozenset(self.fused)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionChoice:
+    """What the memory model decided for one (plan, graph, budget)."""
+
+    batch_size: int
+    schedule: Schedule
+    peak_bytes_per_coloring: int   # modeled, batch=1
+    budget_bytes: int
+    fits: bool                     # batch_size colorings fit under budget
+
+    @property
+    def peak_bytes(self) -> int:
+        return self.peak_bytes_per_coloring * self.batch_size
+
+
+# --------------------------------------------------------------------------
+# liveness
+# --------------------------------------------------------------------------
+def _validate_order(plan, order) -> dict[int, int]:
+    pos = {idx: s for s, idx in enumerate(order)}
+    if sorted(pos) != list(range(plan.n_nodes)) or len(order) != plan.n_nodes:
+        raise ValueError("order must be a permutation of plan node indices")
+    for idx, node in enumerate(plan.nodes):
+        if not node.is_leaf:
+            if pos[node.active] >= pos[idx] or pos[node.passive] >= pos[idx]:
+                raise ValueError(f"order is not topological at node {idx}")
+    return pos
+
+
+def liveness(plan, order, *, fused: tuple[int, ...] = ()
+             ) -> tuple[tuple[tuple[int, ...], ...],
+                        tuple[tuple[int, ...], ...]]:
+    """Last-use analysis -> (free_tables, free_y), parallel to ``order``.
+
+    A node table's life ends at the latest of: every step consuming it as
+    the *active* child; every fused step consuming it as the *passive*
+    child directly; the step that converts it into its cached y-entry (the
+    first unfused passive consumer in ``order``). A y-cache entry dies at
+    its last unfused passive consumer. The root table is never freed (it is
+    the result).
+    """
+    pos = _validate_order(plan, order)
+    fset = frozenset(fused)
+    n = plan.n_nodes
+    table_last = {i: pos[i] for i in range(n)}
+    y_steps: dict[int, list[int]] = {}
+    for idx, node in enumerate(plan.nodes):
+        if node.is_leaf:
+            continue
+        s = pos[idx]
+        table_last[node.active] = max(table_last[node.active], s)
+        if idx in fset:
+            table_last[node.passive] = max(table_last[node.passive], s)
+        else:
+            y_steps.setdefault(node.passive, []).append(s)
+    y_last: dict[int, int] = {}
+    for p, steps in y_steps.items():
+        # the table is consumed where its y entry is created (min step);
+        # the y entry itself lives until its last consumer (max step)
+        table_last[p] = max(table_last[p], min(steps))
+        y_last[p] = max(steps)
+    free_tables: list[tuple[int, ...]] = [() for _ in order]
+    free_y: list[tuple[int, ...]] = [() for _ in order]
+    for i, last in table_last.items():
+        if i != n - 1:
+            free_tables[last] = free_tables[last] + (i,)
+    for p, last in y_last.items():
+        free_y[last] = free_y[last] + (p,)
+    return tuple(free_tables), tuple(free_y)
+
+
+# --------------------------------------------------------------------------
+# the analytic memory model (row units; bytes = rows * n * itemsize * batch)
+# --------------------------------------------------------------------------
+def _step_peaks(plan, k: int, order, free_tables, free_y, *,
+                fused: frozenset[int] = frozenset()) -> list[int]:
+    """Modeled live table rows at each step of the walk (working buffers
+    included). Mirrors :meth:`PlanExecutor.run` exactly, including the
+    mid-step release of a passive table right after its y entry is built."""
+    rows = [comb(k, nd.size) for nd in plan.nodes]
+    leaf_idxs = [i for i, nd in enumerate(plan.nodes) if nd.is_leaf]
+    free_step: dict[int, int] = {}
+    for s, fr in enumerate(free_tables):
+        for i in fr:
+            free_step[i] = s
+    # all leaf tables alias ONE (k, N) one-hot buffer; it dies when the
+    # last leaf index does (the root, never freed, pins it forever)
+    leaf_death = max((free_step.get(i, len(order)) for i in leaf_idxs),
+                    default=-1)
+    live_t: dict[int, int] = {}    # internal-node idx -> rows
+    leaf_live = False
+    live_y: dict[int, int] = {}
+    peaks: list[int] = []
+
+    def cur() -> int:
+        return sum(live_t.values()) + (k if leaf_live else 0) \
+            + sum(live_y.values())
+
+    for step, idx in enumerate(order):
+        node = plan.nodes[idx]
+        if node.is_leaf:
+            leaf_live = True
+            peaks.append(cur())
+        else:
+            out_r = rows[idx]
+            if idx in fused:
+                # fused SpMM->eMA kernel: the neighbor-sum table lives only
+                # in shared memory — no device rows beyond the output table
+                peaks.append(cur() + out_r)
+            else:
+                p = node.passive
+                created = p not in live_y
+                spmm_peak = cur() + (rows[p] if created else 0)
+                if created:
+                    live_y[p] = rows[p]
+                    # mid-step release: the passive table dies here if this
+                    # was its last use (PlanExecutor frees it pre-eMA)
+                    if free_step.get(p) == step and p != node.active \
+                            and not plan.nodes[p].is_leaf:
+                        live_t.pop(p, None)
+                peaks.append(max(spmm_peak, cur() + out_r))
+            live_t[idx] = out_r
+        for i in free_tables[step]:
+            if not plan.nodes[i].is_leaf:
+                live_t.pop(i, None)
+        for p2 in free_y[step]:
+            live_y.pop(p2, None)
+        if leaf_live and step >= leaf_death:
+            leaf_live = False
+    return peaks
+
+
+def simulate_peak_rows(plan, k: int, schedule: Schedule) -> int:
+    """Modeled peak live table rows (1 row = one length-N float vector)."""
+    peaks = _step_peaks(plan, k, schedule.order, schedule.free_tables,
+                        schedule.free_y, fused=schedule.fused_set)
+    return max(peaks) if peaks else 0
+
+
+def peak_table_bytes(plan, k: int, n: int, batch: int = 1,
+                     dtype=np.float32, schedule: Schedule | None = None
+                     ) -> int:
+    """Modeled peak live table bytes for one scheduled plan execution.
+
+    ``batch`` colorings multiply every table (the leaf one-hot included);
+    the static int32 split tables are negligible and excluded.
+    """
+    if schedule is None:
+        schedule = compute_schedule(plan, k)
+    itemsize = np.dtype(dtype).itemsize
+    return simulate_peak_rows(plan, k, schedule) * n * itemsize * batch
+
+
+# --------------------------------------------------------------------------
+# scheduling
+# --------------------------------------------------------------------------
+def _greedy_order(plan, k: int, *,
+                  fused: frozenset[int] = frozenset()) -> list[int]:
+    """Greedy list scheduling: repeatedly evaluate the ready internal node
+    whose modeled step peak (then post-step live size) is smallest.
+
+    Leaves cost one shared (k, N) buffer and are emitted first. The final
+    free lists always come from :func:`liveness` on the chosen order; the
+    reference counts here only steer the choice.
+    """
+    rows = [comb(k, nd.size) for nd in plan.nodes]
+    leaf_idxs = [i for i, nd in enumerate(plan.nodes) if nd.is_leaf]
+    internal = [i for i, nd in enumerate(plan.nodes) if not nd.is_leaf]
+
+    def buf(i: int):
+        return "leaf" if plan.nodes[i].is_leaf else i
+
+    # table-buffer reference counts: active uses + fused passive uses +
+    # one per distinct cached passive child (consumed at y creation)
+    refs: dict[object, int] = {}
+    y_refs: dict[int, int] = {}
+    for idx in internal:
+        node = plan.nodes[idx]
+        refs[buf(node.active)] = refs.get(buf(node.active), 0) + 1
+        if idx in fused:
+            refs[buf(node.passive)] = refs.get(buf(node.passive), 0) + 1
+        else:
+            if node.passive not in y_refs:
+                refs[buf(node.passive)] = refs.get(buf(node.passive), 0) + 1
+            y_refs[node.passive] = y_refs.get(node.passive, 0) + 1
+
+    live_t: dict[object, int] = {}
+    if leaf_idxs:
+        live_t["leaf"] = k
+    live_y: dict[int, int] = {}
+
+    def step_cost(idx: int) -> tuple[int, int]:
+        """(step peak, live rows after) if ``idx`` ran next — no mutation."""
+        node = plan.nodes[idx]
+        cur = sum(live_t.values()) + sum(live_y.values())
+        out_r = rows[idx]
+        direct = idx in fused
+        if direct:
+            peak = cur + out_r
+        else:
+            creates = node.passive not in live_y
+            peak = cur + (rows[node.passive] if creates else 0) + out_r
+        after = cur + out_r
+        dead: set[object] = set()
+        if refs.get(buf(node.active), 0) == 1:
+            dead.add(buf(node.active))
+        if direct or node.passive not in live_y:
+            if refs.get(buf(node.passive), 0) == 1:
+                dead.add(buf(node.passive))
+        if not direct and y_refs.get(node.passive, 0) == 1 \
+                and node.passive in live_y:
+            after -= live_y[node.passive]
+        for b in dead:
+            after -= live_t.get(b, 0)
+        return peak, after
+
+    order = list(leaf_idxs)
+    done = set(leaf_idxs)
+    remaining = set(internal)
+    while remaining:
+        ready = [i for i in remaining
+                 if plan.nodes[i].active in done
+                 and plan.nodes[i].passive in done]
+        pick = min(ready, key=lambda i: step_cost(i) + (i,))
+        node = plan.nodes[pick]
+
+        def consume(b: object) -> None:
+            refs[b] = refs.get(b, 0) - 1
+            if refs[b] <= 0:
+                live_t.pop(b, None)
+
+        if pick in fused:
+            consume(buf(node.passive))
+        else:
+            if node.passive not in live_y:
+                live_y[node.passive] = rows[node.passive]
+                consume(buf(node.passive))
+            y_refs[node.passive] -= 1
+            if y_refs[node.passive] <= 0:
+                live_y.pop(node.passive, None)
+        consume(buf(node.active))
+        live_t[pick] = rows[pick]
+        order.append(pick)
+        done.add(pick)
+        remaining.discard(pick)
+    return order
+
+
+def compute_schedule(plan, k: int | None = None, *,
+                     order_mode: str = "auto",
+                     fused: tuple[int, ...] = ()) -> Schedule:
+    """Build a :class:`Schedule` for ``plan``.
+
+    ``order_mode``: ``"program"`` keeps the plan's own post-order;
+    ``"greedy"`` uses the min-peak list scheduler; ``"auto"`` (default)
+    simulates both and keeps the one with the smaller modeled peak.
+    ``fused`` lists nodes running the fused SpMM->eMA kernel (their
+    neighbor-sum table never reaches device memory — see :class:`Schedule`).
+    """
+    k = k or plan.k
+    fused = tuple(sorted(set(fused)))
+    candidates: list[tuple[int, ...]] = []
+    if order_mode in ("program", "auto"):
+        candidates.append(tuple(range(plan.n_nodes)))
+    if order_mode in ("greedy", "auto"):
+        candidates.append(tuple(_greedy_order(plan, k,
+                                              fused=frozenset(fused))))
+    if not candidates:
+        raise ValueError(f"unknown order_mode {order_mode!r}")
+    best: Schedule | None = None
+    best_peak: int | None = None
+    for order in candidates:
+        ft, fy = liveness(plan, order, fused=fused)
+        sched = Schedule(order=order, free_tables=ft, free_y=fy, fused=fused)
+        peak = simulate_peak_rows(plan, k, sched)
+        if best_peak is None or peak < best_peak:
+            best, best_peak = sched, peak
+    return best
+
+
+# --------------------------------------------------------------------------
+# budget -> (batch size, schedule)
+# --------------------------------------------------------------------------
+def pick_execution(plan, k: int, n: int, *,
+                   memory_budget_bytes: int | None = None,
+                   dtype=np.float32, max_batch: int = MAX_AUTO_BATCH,
+                   fused: tuple[int, ...] = ()) -> ExecutionChoice:
+    """Turn one ``memory_budget_bytes`` knob into (batch size, schedule).
+
+    The batch is the largest B with ``B * peak(batch=1) <= budget`` (capped
+    at ``max_batch``). ``fused`` nodes run the fused SpMM->eMA kernel and
+    are charged no neighbor-sum rows, so the same budget admits a larger
+    batch. When even B=1 exceeds the budget the choice is B=1 with
+    ``fits=False``: the JAX package then chunks the passive colorset axis,
+    which the port does not do yet.
+    """
+    budget = memory_budget_bytes if memory_budget_bytes is not None \
+        else DEFAULT_MEMORY_BUDGET_BYTES
+    itemsize = np.dtype(dtype).itemsize
+    sched = compute_schedule(plan, k, fused=fused)
+    per1 = simulate_peak_rows(plan, k, sched) * n * itemsize
+    if per1 > budget:
+        return ExecutionChoice(1, sched, per1, budget, False)
+    batch = max(1, min(max_batch, budget // max(per1, 1)))
+    return ExecutionChoice(int(batch), sched, per1, budget, True)
+
+
+# --------------------------------------------------------------------------
+# the executor
+# --------------------------------------------------------------------------
+class PlanExecutor:
+    """Drives one scheduled plan walk; engine-specific math via callbacks.
+
+    ``run(leaf, passive_op=, combine=, combine_direct=, on_step=)``:
+
+    * ``leaf``: the shared leaf table (every leaf node aliases it);
+    * ``passive_op(p_idx, m_p)``: passive transform (SpMM), cached per
+      distinct passive child;
+    * ``combine(idx, m_a, y_p)``: eMA of the active table with the cached
+      transform;
+    * ``combine_direct(idx, m_a, m_p)``: fused SpMM->eMA nodes — consumes
+      the passive *table* directly;
+    * ``on_step(step, live_bytes)``: optional instrumentation hook called
+      twice per step (post-compute and post-free) with the live table bytes
+      (unique buffers only), so measured peaks can be checked against
+      :func:`peak_table_bytes`.
+
+    Buffers are dropped at their statically computed last use, which
+    returns their device memory to PyTorch's caching allocator at once.
+    """
+
+    def __init__(self, plan, schedule: Schedule):
+        _validate_order(plan, schedule.order)
+        self.plan = plan
+        self.schedule = schedule
+
+    @staticmethod
+    def _live_bytes(tables: dict, y: dict) -> int:
+        uniq: dict[int, object] = {}
+        for v in list(tables.values()) + list(y.values()):
+            if v is not None:
+                uniq[id(v)] = v
+        # torch tensors: np.dtype() does not take a torch dtype
+        return sum(v.numel() * v.element_size() for v in uniq.values())
+
+    def run(self, leaf, *, passive_op, combine, combine_direct=None,
+            on_step=None):
+        """Walk the schedule; returns the root table."""
+        plan, sched = self.plan, self.schedule
+        fset = sched.fused_set
+        if fset and combine_direct is None:
+            raise ValueError("schedule has fused nodes; run() needs a "
+                             "combine_direct callback")
+        tables: dict[int, object] = {}
+        y: dict[int, object] = {}
+        root_idx = plan.n_nodes - 1
+        for step, idx in enumerate(sched.order):
+            node = plan.nodes[idx]
+            if node.is_leaf:
+                tables[idx] = leaf
+            else:
+                m_a = tables[node.active]
+                fused = idx in fset
+                # kernel launches are asynchronous: these spans expose
+                # per-node plan structure and launch time, not device
+                # time — that belongs to the engine's dispatch span
+                with _tracing.span("plan.node", idx=idx, size=node.size,
+                                   mode="fused" if fused else "cached"):
+                    if fused:
+                        tables[idx] = combine_direct(idx, m_a,
+                                                     tables[node.passive])
+                    else:
+                        if node.passive not in y:
+                            y[node.passive] = passive_op(
+                                node.passive, tables[node.passive])
+                            # mid-step release: the passive table may die
+                            # the moment its y entry exists
+                            if node.passive in sched.free_tables[step] \
+                                    and node.passive != node.active:
+                                tables.pop(node.passive, None)
+                        tables[idx] = combine(idx, m_a, y[node.passive])
+                m_a = None
+            if on_step is not None:
+                on_step(step, self._live_bytes(tables, y))
+            for i in sched.free_tables[step]:
+                if i != root_idx:
+                    tables.pop(i, None)
+            for p in sched.free_y[step]:
+                y.pop(p, None)
+            if on_step is not None:
+                on_step(step, self._live_bytes(tables, y))
+        return tables[root_idx]

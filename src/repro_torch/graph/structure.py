@@ -1,0 +1,178 @@
+"""Graph structures for PGBSC.
+
+The host-side canonical representation is CSR (numpy). Device-side formats are
+derived on demand:
+
+* ``edges``        — (src, dst) int32 arrays sorted by dst.
+* ``bsr``          — 128x128 dense-ified adjacency tiles (block-sparse rows)
+                     for the BSR SpMM and fused SpMM->eMA kernels.
+
+All formats represent the *reverse* traversal used by the DP: for an undirected
+graph, A is symmetric and Y[:, i] = sum_{j in N(i)} M[:, j].
+
+A copy of the JAX package's ``graph/structure.py`` without the formats of
+engines the port does not run yet (ELL lists, gather edge chunks) and
+without the helpers only the service and reordering use (``fingerprint``,
+``bsr_block_stats``, ``to_dense``); ``bsr`` is vectorised (same bytes as the
+reference's block loop, tested).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import cached_property
+
+import numpy as np
+
+__all__ = ["Graph", "BsrMatrix", "BsrLayout"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrMatrix:
+    """Block-sparse adjacency: dense ``tile x tile`` blocks for nonempty tiles.
+
+    ``blocks[b]`` is the dense sub-matrix A[src_tile*t:(src_tile+1)*t,
+    dst_tile*t:(dst_tile+1)*t]; the SpMM computes
+    ``Y[:, dst_block] += M[:, src_block] @ blocks[b]``. Blocks are sorted by
+    ``dst_tile`` so output blocks are revisited consecutively.
+    """
+
+    blocks: np.ndarray    # (n_blocks, tile, tile) float32
+    src_tile: np.ndarray  # (n_blocks,) int32
+    dst_tile: np.ndarray  # (n_blocks,) int32
+    tile: int
+    n_tiles: int
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.blocks.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrLayout:
+    """The block stream of :class:`BsrMatrix` and each edge's slot in it:
+    edge e sets ``blocks[edge_block[e], edge_src[e], edge_dst[e]] = 1``."""
+
+    src_tile: np.ndarray    # (n_blocks,) int32
+    dst_tile: np.ndarray    # (n_blocks,) int32, sorted ascending
+    edge_block: np.ndarray  # (m,) int64
+    edge_src: np.ndarray    # (m,) int64, row inside the block
+    edge_dst: np.ndarray    # (m,) int64, column inside the block
+    tile: int
+    n_tiles: int
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.src_tile.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Simple undirected graph in CSR form (host-side numpy).
+
+    ``indptr``/``indices`` follow scipy conventions. The graph is stored
+    symmetrized and deduplicated; self-loops are removed.
+    """
+
+    n: int
+    indptr: np.ndarray   # (n + 1,) int64
+    indices: np.ndarray  # (m,) int32  — column ids, sorted per row
+
+    # ------------------------------------------------------------- builders
+    @staticmethod
+    def from_edges(n: int, edges: np.ndarray) -> "Graph":
+        """Build from an (m, 2) array of (possibly directed/duplicated) edges."""
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        if edges.size:
+            if edges.min() < 0 or edges.max() >= n:
+                raise ValueError("edge endpoint out of range")
+        # symmetrize, drop self loops, dedup
+        und = np.concatenate([edges, edges[:, ::-1]], axis=0)
+        und = und[und[:, 0] != und[:, 1]]
+        if und.size:
+            key = und[:, 0] * n + und[:, 1]
+            key = np.unique(key)
+            src = (key // n).astype(np.int64)
+            dst = (key % n).astype(np.int32)
+        else:
+            src = np.zeros((0,), np.int64)
+            dst = np.zeros((0,), np.int32)
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.add.at(indptr, src + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        return Graph(n=n, indptr=indptr, indices=dst)
+
+    # ------------------------------------------------------------ properties
+    @property
+    def m(self) -> int:
+        """Number of directed edge slots (2x undirected edge count)."""
+        return int(self.indices.shape[0])
+
+    @cached_property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int64)
+
+    # ------------------------------------------------------- device formats
+    @cached_property
+    def edges_by_dst(self) -> tuple[np.ndarray, np.ndarray]:
+        """(src, dst) int32 arrays; CSR is per-dst sorted already (symmetric).
+
+        Because the CSR rows are destination rows for the reverse traversal
+        (A symmetric), row i's entries are the sources contributing to dst i.
+        """
+        dst = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
+        src = self.indices.astype(np.int32)
+        return src, dst
+
+    def bsr_layout(self, tile: int = 128) -> "BsrLayout":
+        """Where every edge lands in the BSR stream, without the blocks.
+
+        Blocks are the distinct (dst_tile, src_tile) pairs of the edges in
+        ascending key order, with one zero filler block per empty
+        destination tile, stably merged by destination tile — the order of
+        the reference's block loop. Kept apart from :meth:`bsr` so a device
+        operand can be densified where it lives (``kernels/spmm/ops``).
+        """
+        src, dst = self.edges_by_dst
+        n_tiles = -(-self.n // tile)
+        key = (dst // tile).astype(np.int64) * n_tiles + src // tile
+        uniq, edge_block = np.unique(key, return_inverse=True)
+        d_occ = (uniq // n_tiles).astype(np.int32)
+        s_occ = (uniq % n_tiles).astype(np.int32)
+        # Every dst tile needs >= 1 block so its output block is initialized.
+        empty = np.setdiff1d(np.arange(n_tiles, dtype=np.int32), d_occ)
+        d_all = np.concatenate([d_occ, empty])
+        s_all = np.concatenate([s_occ, empty])
+        order = np.argsort(d_all, kind="stable")
+        slot = np.empty(len(order), np.int64)
+        slot[order] = np.arange(len(order))
+        return BsrLayout(
+            src_tile=s_all[order], dst_tile=d_all[order],
+            edge_block=slot[edge_block.ravel()],
+            edge_src=(src % tile).astype(np.int64),
+            edge_dst=(dst % tile).astype(np.int64),
+            tile=tile, n_tiles=n_tiles)
+
+    def bsr(self, tile: int = 128) -> BsrMatrix:
+        """Dense-ified tile blocks, sorted by destination tile.
+
+        Block b holds A[src_tile, dst_tile] densified;
+        Y[:, dst] += M[:, src] @ block. Efficient after RCM reordering
+        concentrates nonzeros near the diagonal.
+        """
+        lay = self.bsr_layout(tile)
+        blocks = np.zeros((lay.n_blocks, tile, tile), np.float32)
+        blocks[lay.edge_block, lay.edge_src, lay.edge_dst] = 1.0
+        return BsrMatrix(blocks=blocks, src_tile=lay.src_tile,
+                         dst_tile=lay.dst_tile, tile=tile,
+                         n_tiles=lay.n_tiles)
+
+    def padded(self, multiple: int) -> "Graph":
+        """Pad vertex count up to a multiple (isolated padding vertices)."""
+        n_pad = -(-self.n // multiple) * multiple
+        if n_pad == self.n:
+            return self
+        indptr = np.concatenate(
+            [self.indptr, np.full(n_pad - self.n, self.indptr[-1], np.int64)]
+        )
+        return Graph(n=n_pad, indptr=indptr, indices=self.indices)

@@ -1,0 +1,70 @@
+"""Carry a JAX engine's state into the port.
+
+The JAX package hands its state over as numpy arrays (the port never
+imports it): the graph's CSR arrays, the BSR block stream of its SpMM or
+fused prep (``np.asarray(engine._spmm_prep.arrays[...])``) and the split
+tables of its plan nodes (``engine._splits``). These functions turn them
+into the port's ``Graph``, BSR operand and split tables on a device, and
+:func:`engine_from_state` builds a port engine that runs on exactly that
+state instead of rebuilding it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.engines import CountingEngine
+from repro_torch.device import resolve_device
+from repro_torch.graph.structure import Graph
+from repro_torch.kernels.spmm import ops as spmm_ops
+
+__all__ = ["graph_from_arrays", "bsr_from_arrays", "splits_from_arrays",
+           "engine_from_state"]
+
+
+def graph_from_arrays(n: int, indptr, indices) -> Graph:
+    """The port's host graph from CSR arrays."""
+    return Graph(n=int(n), indptr=np.asarray(indptr, np.int64),
+                 indices=np.asarray(indices, np.int32))
+
+
+def bsr_from_arrays(n: int, arrays: dict, *, dtype=torch.float32,
+                    device=None) -> spmm_ops.BsrPrep:
+    """The port's BSR operand from a reference prep's ``blocks``,
+    ``src_tile`` and ``dst_tile`` arrays."""
+    return spmm_ops.from_arrays(
+        int(n), np.array(arrays["blocks"]), arrays["src_tile"],
+        arrays["dst_tile"], dtype=dtype, device=resolve_device(device))
+
+
+def splits_from_arrays(splits: dict, *, device=None) -> dict:
+    """``{plan node: (IA, IP)}`` as int32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {int(idx): tuple(torch.as_tensor(np.array(t, np.int32),
+                                            device=dev) for t in pair)
+            for idx, pair in splits.items()}
+
+
+def engine_from_state(template, *, n: int, indptr, indices, bsr: dict,
+                      splits: dict, device=None, **engine_kw
+                      ) -> CountingEngine:
+    """A port engine on the carried graph, BSR stream and split tables.
+
+    The carried arrays must describe the same operand the port would build
+    (same block count and split-table shapes); the engine then runs on them
+    as given. ``engine_kw`` are :class:`CountingEngine` keywords.
+    """
+    g = graph_from_arrays(n, indptr, indices)
+    eng = CountingEngine(g, template, device=device, **engine_kw)
+    prep = bsr_from_arrays(n, bsr, dtype=eng.dtype, device=eng.device)
+    tables = splits_from_arrays(splits, device=eng.device)
+    if prep.blocks.shape != eng._bsr.blocks.shape:
+        raise ValueError(f"carried BSR stream {tuple(prep.blocks.shape)} "
+                         f"does not fit this graph "
+                         f"{tuple(eng._bsr.blocks.shape)}")
+    if sorted(tables) != sorted(eng._splits) or any(
+            tables[i][0].shape != eng._splits[i][0].shape for i in tables):
+        raise ValueError("carried split tables do not match the plan")
+    eng._bsr, eng._splits = prep, tables
+    return eng

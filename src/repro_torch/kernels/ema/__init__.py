@@ -1,0 +1,1 @@
+"""eMA: the CUDA kernel's wrapper and its plain version."""

@@ -1,0 +1,114 @@
+"""Guards of the port's package rules.
+
+The port imports torch and numpy, never JAX or the JAX package; its entry
+points run on CUDA unless asked for the CPU; and the card's shared-memory
+fit model decides which plan nodes run the fused kernel.
+"""
+
+import ast
+import subprocess
+import sys
+from math import comb
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import api, interop
+from repro_torch.core.engines import CountingEngine
+from repro_torch.core.templates import get_template
+from repro_torch.device import resolve_device
+from repro_torch.graph.coloring import batch_colorings, iteration_key
+from repro_torch.graph.generators import grid_2d
+from repro_torch.kernels.fused.ops import fused_fits_smem
+from repro_torch.kernels.spmm import ops as spmm_ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.api, repro_torch.interop; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env_path = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True,
+                         env={"PYTHONPATH": env_path, "PATH": "/usr/bin"})
+    assert out.stdout.strip() == "False"
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        CountingEngine(grid_2d(4, 4), "u5")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+_TINY = grid_2d(4, 4)
+_TINY_BSR = {"blocks": torch.eye(128).reshape(1, 128, 128).numpy(),
+             "src_tile": [0], "dst_tile": [0]}
+ENTRY_POINTS = {
+    "prepare": lambda **kw: spmm_ops.prepare(_TINY, **kw),
+    "from_arrays": lambda **kw: spmm_ops.from_arrays(
+        _TINY.n, _TINY_BSR["blocks"], [0], [0], **kw),
+    "bsr_from_arrays": lambda **kw: interop.bsr_from_arrays(
+        _TINY.n, _TINY_BSR, **kw),
+    "splits_from_arrays": lambda **kw: interop.splits_from_arrays(
+        {1: ([[0]], [[0]])}, **kw),
+    "batch_colorings": lambda **kw: batch_colorings(0, range(2), 5, 3, **kw),
+    "iteration_key": lambda **kw: iteration_key(0, 1, **kw),
+    "api.count": lambda **kw: api.count(_TINY, "u3", max_iters=1, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_cuda_and_runs_when_asked_for_cpu(
+        name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name]()
+    ENTRY_POINTS[name](device="cpu")
+
+
+def test_card_fit_model_admits_every_u12_sole_consumer():
+    eng = CountingEngine(grid_2d(16, 16), "u12", plan="optimized",
+                         device="cpu")
+    admitted = [i for i, v in eng.fusion_report.items() if v == "admitted"]
+    assert admitted == [3, 5, 7, 9, 11]
+    assert all(v == "multi_consumer" for i, v in eng.fusion_report.items()
+               if i not in admitted)
+
+
+def test_card_fit_model_rejects_wide_passive_tables():
+    plan = get_template("u15-1").plan_optimized
+    widths = {i: comb(15, plan.nodes[nd.passive].size)
+              for i, nd in enumerate(plan.nodes) if not nd.is_leaf}
+    assert max(widths.values()) == 6435
+    assert not fused_fits_smem(6435)
+    assert fused_fits_smem(792) and fused_fits_smem(792, torch.bfloat16)
+    eng = CountingEngine(grid_2d(4, 4), "u15-1", plan="optimized",
+                         device="cpu", memory_budget_bytes=1 << 34)
+    wide = [i for i, w in widths.items() if w == 6435]
+    assert all(eng.fusion_report[i] == "smem_overflow" for i in wide)
