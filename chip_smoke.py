@@ -2,22 +2,37 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. In order it prints:
+``src/repro_torch/csrc``) and nothing of JAX. It drives three paths of the
+port, each with every kernel's launch counter set to 0 just before it and
+read just after:
+
+* **u12 on a mesh:** ``api.count(grid_2d(1024, 1024), "u12", max_iters=8,
+  memory_budget_bytes=32 GiB)`` — BSR SpMM, eMA, fused SpMM->eMA;
+* **the k=10 tree census (path A):** all 106 free trees on 10 vertices,
+  each rooted at a center, through ``api.compile_query(...).run()`` (what
+  ``api.count_many`` runs) on ``grid_2d(1024, 1024)``, ``plan="dedup"``,
+  8 colorings, 48 GiB — adds the shared-passive group kernel;
+* **u12 on a social graph (path B):** ``CountingEngine(rmat(20), "u12",
+  plan="optimized", spmm_method="gather", fuse_spmm_ema=False,
+  memory_budget_bytes=48 GiB).estimate(8)`` — gather SpMM and eMA, with no
+  BSR operand built.
+
+In order it prints:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the kernels' build time and ptxas' register counts;
-3. each CUDA kernel against its plain PyTorch version on the card, at the
-   main path's shapes (the u12 plan on ``grid_2d(1024, 1024)``), B=1 and
-   B=4, f32 and bf16 storage: error against the stated tolerance, kernel
-   and plain times, the kernel's bound, and for the SpMM the time of
-   ``torch.sparse.mm`` on the CSR adjacency as a yardstick;
-4. whole-path parity: u12 on ``grid_2d(64, 64)``, 8 colorings, the card's
-   engine against the CPU engine (plain versions);
-5. the full-size slice: ``repro_torch.api.count(grid_2d(1024, 1024),
-   "u12", max_iters=8, memory_budget_bytes=32 GiB)``, with each kernel's
-   launches in that run (all must be > 0) and the peak device memory;
-6. where the time goes: one batch of that query under ``torch.profiler``,
-   device time by kernel and the device's idle share;
+3. each CUDA kernel against its plain PyTorch version on the card, at its
+   path's shapes, f32 and bf16 storage: error against the stated
+   tolerance, kernel and plain times, the kernel's bound, and for the two
+   SpMMs the time of ``torch.sparse.mm`` on the CSR adjacency;
+4. whole-path parity, the card's engine against the CPU engine (plain
+   versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
+   ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; u12
+   with ``spmm_method="gather"`` on ``rmat(12)``;
+5. the three full-size runs, each with its kernels' launches (all must be
+   > 0), peak device memory and seconds per coloring;
+6. where the time goes: one batch of each full-size path under
+   ``torch.profiler``, device time by kernel and the device's idle share;
 7. one JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -41,6 +56,58 @@ F32_RTOL = 1e-6                # integer inputs: both sides are exact in f32
 BF16_RTOL = 1e-2               # bf16 storage rounds the stored results
 PATH_RTOL = 1e-5               # f32 sums past 2^24 taken in another order
 GIB = 1 << 30
+CENSUS_BUDGET = 48 * GIB       # path A and path B memory budget
+
+
+# ---------------------------------------------------------------- census
+# The tree census: every free tree on k vertices (OEIS A000055: 1, 1, 1, 2,
+# 3, 6, 11, 23, 47, 106 for k = 1..10). Pure Python, so the tests load it
+# from this file by path.
+def _rooted_canon(adj, root, parent=-1):
+    return "(" + "".join(sorted(_rooted_canon(adj, u, root)
+                                for u in adj[root] if u != parent)) + ")"
+
+
+def _centers(adj):
+    deg = {v: len(nb) for v, nb in adj.items()}
+    left = set(adj)
+    layer = [v for v in left if deg[v] <= 1]
+    while len(left) > 2:
+        nxt = []
+        for v in layer:
+            left.discard(v)
+            for u in adj[v]:
+                if u in left:
+                    deg[u] -= 1
+                    if deg[u] == 1:
+                        nxt.append(u)
+        layer = nxt
+    return sorted(left)
+
+
+def census_trees(k):
+    """Every free tree on k vertices, one per isomorphism class, as
+    ``(edges, root)`` with ``root`` a center vertex (of two centers, the one
+    whose rooted form sorts first). Trees grow by one leaf at a time; a new
+    tree is kept when its canonical form (the least rooted form over its
+    centers) is new."""
+    trees = {"()": ((), 0)}
+    for size in range(2, k + 1):
+        grown = {}
+        for edges, _ in trees.values():
+            for v in range(size - 1):
+                new = edges + ((v, size - 1),)
+                adj = {u: [] for u in range(size)}
+                for a, b in new:
+                    adj[a].append(b)
+                    adj[b].append(a)
+                forms = sorted((_rooted_canon(adj, c), c)
+                               for c in _centers(adj))
+                key = forms[0][0]
+                if key not in grown:
+                    grown[key] = (new, forms[0][1])
+        trees = grown
+    return [trees[key] for key in sorted(trees)]
 
 
 def _sync():
@@ -63,7 +130,11 @@ def _time_ms(fn, reps: int) -> float:
 
 def _errors(got, want) -> tuple[float, float]:
     """(max abs error, max error relative to max(|want|, 1)), row block by
-    row block so no full-size difference tensor is allocated."""
+    row block so no full-size difference tensor is allocated; tuples of
+    tables (a group's outputs) are compared pair by pair."""
+    if isinstance(got, tuple):
+        errs = [_errors(a, b) for a, b in zip(got, want)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
     g2 = got.reshape(-1, got.shape[-1])
     w2 = want.reshape(-1, want.shape[-1])
     abs_err = rel_err = 0.0
@@ -223,6 +294,97 @@ def _measure(case: dict, tol: float, reps: int) -> dict:
     return row
 
 
+def _csr(g, dev):
+    """The adjacency as a torch CSR tensor of ones (the library yardstick
+    of the SpMMs; A is symmetric, so (M @ A)^T = A @ M^T)."""
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(g.indptr, device=dev),
+        torch.as_tensor(g.indices.astype("int64"), device=dev),
+        torch.ones(g.m, device=dev), size=(g.n, g.n), check_invariants=True)
+
+
+def phase_group_kernel(g, batch: int, n_cons: int) -> dict:
+    """The shared-passive group kernel against its plain version at path
+    A's group shape: ``n_cons`` census roots (k=10: c_a = c_p = C(10,5) =
+    252, S = 1, L = 252) sharing one passive table, path A's batch."""
+    import torch
+
+    from repro_torch.core.colorsets import split_tables
+    from repro_torch.kernels.fused import ops as fused_ops
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    dev = torch.device("cuda")
+    n, c = g.n, math.comb(10, 5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ia, ip = (torch.as_tensor(a, dtype=torch.int32, device=dev)
+              for a in split_tables(10, 10, 5))
+    s, l = ia.shape
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        prep = spmm_ops.prepare(g, dtype=dt, device=dev)
+        tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+        m_p = torch.randint(0, 4, (batch, c, n), generator=gen,
+                            device=dev).to(dt)
+        m_as = [torch.randint(0, 4, (batch, c, n), generator=gen,
+                              device=dev).to(dt) for _ in range(n_cons)]
+        ias, ips = [ia] * n_cons, [ip] * n_cons
+        case = dict(
+            name="fused_spmm_ema_shared",
+            shape=f"{n_cons}x m_a=({batch},{c},{n}) m_p=({batch},{c},{n}) "
+                  f"S={s} L={l}",
+            kernel=lambda: fused_ops.fused_spmm_ema_shared(
+                m_as, m_p, ias, ips, prep),
+            plain=lambda: fused_ops.fused_spmm_ema_shared_plain(
+                m_as, m_p, ias, ips, prep),
+            bytes=(m_p.numel() + sum(m.numel() for m in m_as)
+                   + n_cons * batch * s * n) * dt.itemsize
+            + 4 * (n + 1 + g.m) + n_cons * 8 * ia.numel(),
+            flops=2 * g.m * c * batch + n_cons * 2 * batch * s * l * n,
+            library=None)
+        results[dt] = _measure(case, tol, 3)
+        del case, m_p, m_as, prep
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_gather_kernel(g, batch: int) -> dict:
+    """The gather SpMM against its plain version on ``rmat(20)`` at path
+    B's shapes: its batch of leaf tables (12 rows a coloring) and of node
+    3's passive table (220 rows), timed beside ``torch.sparse.mm``."""
+    import torch
+
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    dev = torch.device("cuda")
+    n = g.n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    prep = spmm_ops.prepare(g, "gather", device=dev)
+    csr = _csr(g, dev)
+    results = {}
+    for dt, rows in ((torch.float32, 12), (torch.bfloat16, 12),
+                     (torch.float32, 220)):
+        tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+        m = torch.randint(0, 4, (batch, rows, n), generator=gen,
+                          device=dev).to(dt)
+        m_t = m.reshape(-1, n).t().contiguous().float() \
+            if dt == torch.float32 else None
+        case = dict(
+            name="spmm_gather", shape=f"m=({batch},{rows},{n}) E={g.m}",
+            kernel=lambda: spmm_ops.spmm(m, prep),
+            plain=lambda: spmm_ops.spmm_gather_plain(m, prep),
+            bytes=2 * m.numel() * dt.itemsize + prep.nbytes,
+            flops=g.m * batch * rows,          # one add per edge and row
+            library=(lambda: torch.sparse.mm(csr, m_t))
+            if m_t is not None else None)
+        results[(dt, rows)] = _measure(case, tol, 3)
+        del case, m, m_t
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_parity() -> None:
     """u12 on grid_2d(64, 64), 8 colorings: card engine vs CPU engine."""
     import torch
@@ -247,27 +409,102 @@ def phase_parity() -> None:
           flush=True)
 
 
-def phase_full(g) -> dict:
-    """The slice at full size through the user's entry point."""
-    import torch
+def census_specs(k: int) -> list:
+    from repro_torch.core.templates import TemplateSpec
+    trees = census_trees(k)
+    expected = {8: 23, 10: 106}.get(k)
+    if expected is not None and len(trees) != expected:
+        raise AssertionError(f"census of k={k}: {len(trees)} trees, OEIS "
+                             f"A000055 has {expected}")
+    return [TemplateSpec(edges=e, root=r, name=f"tree{k}_{i}")
+            for i, (e, r) in enumerate(trees)]
+
+
+def phase_parity_census() -> None:
+    """The k=8 census on grid_2d(64, 64): count_many and motif_features,
+    card against CPU."""
+    import numpy as np
 
     from repro_torch import api
+    from repro_torch.graph.generators import grid_2d
+
+    g = grid_2d(64, 64)
+    specs = census_specs(8)
+    kw = dict(plan="dedup", max_iters=8, seed=0)
+    card = api.count_many(g, specs, device="cuda", **kw)
+    host = api.count_many(g, specs, device="cpu", **kw)
+    got = np.array([r.estimate for r in card])
+    want = np.array([r.estimate for r in host])
+    np.testing.assert_allclose(got, want, rtol=PATH_RTOL, atol=0)
+    f_card = api.motif_features(g, specs, n_iters=4, device="cuda")
+    f_host = api.motif_features(g, specs, n_iters=4, device="cpu")
+    np.testing.assert_allclose(f_card, f_host, rtol=PATH_RTOL, atol=0)
+    print(f"[parity] k=8 census ({len(specs)} trees) grid_2d(64,64): "
+          f"count_many card == CPU on every estimate (rtol {PATH_RTOL:g}), "
+          f"{int((got > 0).sum())} nonzero; motif_features "
+          f"{f_card.shape} card == CPU", flush=True)
+
+
+def phase_parity_gather() -> None:
+    """u12 with spmm_method="gather" on rmat(12): card against CPU."""
+    import torch
+
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.graph.coloring import batch_colorings
+    from repro_torch.graph.generators import rmat
+
+    g = rmat(12)
+    kw = dict(plan="optimized", spmm_method="gather", fuse_spmm_ema=False)
+    card = CountingEngine(g, "u12", device="cuda", **kw)
+    host = CountingEngine(g, "u12", device="cpu", **kw)
+    cols = batch_colorings(0, range(8), g.n, 12, device="cuda")
+    t_card, r_card = card.count_colorful_batch(cols)
+    t_host, r_host = host.count_colorful_batch(cols.cpu())
+    _sync()
+    torch.testing.assert_close(t_card.cpu(), t_host, rtol=PATH_RTOL, atol=0)
+    torch.testing.assert_close(r_card.cpu(), r_host, rtol=PATH_RTOL, atol=0)
+    print(f"[parity] u12 gather rmat(12) n={g.n} m={g.m} 8 colorings: card "
+          f"totals == CPU totals (rtol {PATH_RTOL:g}); root tables agree",
+          flush=True)
+
+
+def _counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name; each counts its
+    own launches in ``.launches``."""
     from repro_torch.kernels.ema import ops as ema_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.spmm import ops as spmm_ops
+    return {"spmm_bsr": spmm_ops.spmm, "ema": ema_ops.ema,
+            "fused_spmm_ema": fused_ops.fused_spmm_ema,
+            "fused_spmm_ema_shared": fused_ops.fused_spmm_ema_shared,
+            "spmm_gather": spmm_ops.spmm_gather}
 
-    counters = {"spmm_bsr": spmm_ops.spmm, "ema": ema_ops.ema,
-                "fused_spmm_ema": fused_ops.fused_spmm_ema}
+
+def _reset_counts() -> None:
+    import torch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
+    for fn in _counters().values():
         fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_full(g) -> dict:
+    """The u12 slice at full size through the user's entry point."""
+    import torch
+
+    from repro_torch import api
+
+    _reset_counts()
     t0 = time.perf_counter()
     res = api.count(g, "u12", max_iters=8, memory_budget_bytes=32 * GIB,
                     seed=0)
     _sync()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"[full] u12 on grid_2d(1024,1024) n={g.n} m={g.m}: "
           f"estimate={res.estimate!r} stderr={res.stderr!r} "
@@ -279,31 +516,137 @@ def phase_full(g) -> dict:
     if not (math.isfinite(res.estimate) and res.estimate > 0
             and res.iterations == 8):
         raise AssertionError(f"bad estimate {res}")
-    if min(launches.values()) == 0:
+    path = ("spmm_bsr", "ema", "fused_spmm_ema")
+    if min(launches[k] for k in path) == 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     return launches
 
 
-def phase_profile(g) -> None:
-    """Where the time goes: one batch of 4 colorings of the full-size query
-    under ``torch.profiler``; device time by kernel and the device's idle
-    share of the host wall time."""
-    import collections
-
+def phase_census_full(g) -> tuple[dict, int, int]:
+    """Path A: the k=10 census (106 trees) on grid_2d(1024, 1024), plan
+    "dedup", 8 colorings, through ``compile_query(...).run()`` — the body
+    of ``api.count_many`` — so the engine's groups and batch can be read.
+    Returns (launches, batch size, largest group)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import api
 
-    q = api.CompiledQuery(g, api.CountQuery(
-        template="u12", max_iters=4, round_size=4,
-        memory_budget_bytes=32 * GIB))
+    specs = census_specs(10)
+    _reset_counts()
+    t0 = time.perf_counter()
+    q = api.compile_query(g, api.CountQuery(
+        templates=tuple(specs), max_iters=8, plan="dedup", seed=0,
+        memory_budget_bytes=CENSUS_BUDGET))
+    built = time.perf_counter() - t0
+    res = q.run()
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    eng = q.engine
+    groups = eng.schedule.fused_groups
+    secs = res[0].seconds
+    print(f"[full] k=10 census ({len(specs)} trees) on grid_2d(1024,1024): "
+          f"plan nodes={eng.plan.n_nodes} groups admitted={len(groups)} "
+          f"sizes={[len(gr) for gr in groups]} fused nodes="
+          f"{len(eng.schedule.fused)} batch={eng.batch_size} "
+          f"iterations={res[0].iterations} s_per_coloring={secs / 8:.4f} "
+          f"(count loop {secs:.3f} s, engine build {built:.3f} s, total "
+          f"{wall:.3f} s) spmm_cols_per_coloring="
+          f"{eng.spmm_cols_per_coloring} modeled peak="
+          f"{eng.peak_table_bytes} launches={launches} "
+          f"max_memory_allocated={peak} ({peak / GIB:.2f} GiB)", flush=True)
+    est = [r.estimate for r in res]
+    print(f"[full]   estimates: min={min(est)!r} max={max(est)!r} "
+          f"zero={sum(e == 0 for e in est)}", flush=True)
+    # a tree embeds in the grid exactly when no vertex has degree > 4
+    for spec, r in zip(specs, res):
+        deg = max(sum(v in e for e in spec.edges) for v in range(spec.k))
+        if not (math.isfinite(r.estimate) and r.iterations == 8
+                and (r.estimate > 0) == (deg <= 4)):
+            raise AssertionError(f"bad census estimate for {spec}: {r}")
+    if len(groups) < 3:
+        raise AssertionError(f"only {len(groups)} shared-passive groups")
+    path = ("spmm_bsr", "ema", "fused_spmm_ema", "fused_spmm_ema_shared")
+    if min(launches[k] for k in path) == 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    return launches, eng.batch_size, max(len(gr) for gr in groups)
+
+
+def layout_sizes(g, tile: int = 128, chunk: int = 512) -> dict:
+    """What the other SpMM operands would hold for ``g``: the occupied
+    tile pairs, the dense f32 blocks over them, and the JAX package's
+    gather layout (``Graph.edge_chunks``: each pair's edges padded to
+    ``chunk``-edge chunks of int32 source, int32 local destination and an
+    f32 mask, one chunk more for each empty destination tile)."""
+    import numpy as np
+    src, dst = g.indices, np.repeat(np.arange(g.n), g.degrees)
+    n_tiles = -(-g.n // tile)
+    _, per_pair = np.unique((dst // tile) * n_tiles + src // tile,
+                            return_counts=True)
+    empty = n_tiles - len(np.unique(dst // tile))
+    chunks = int((-(-per_pair // chunk)).sum()) + empty
+    return {"tile_pairs": len(per_pair),
+            "dense_block_bytes": (len(per_pair) + empty) * tile * tile * 4,
+            "padded_chunk_bytes": chunks * chunk * 12}
+
+
+def phase_gather_full(g) -> tuple[dict, int]:
+    """Path B: u12 on rmat(20) through the gather SpMM, 8 colorings.
+    Returns (launches, batch size)."""
+    import torch
+
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = CountingEngine(g, "u12", plan="optimized", spmm_method="gather",
+                         fuse_spmm_ema=False,
+                         memory_budget_bytes=CENSUS_BUDGET)
+    built = time.perf_counter() - t0
+    prep = eng._spmm_prep
+    if not isinstance(prep, spmm_ops.GatherPrep) \
+            or eng._fused_prep is not None:
+        raise AssertionError("the gather engine built a BSR operand")
+    _reset_counts()
+    t0 = time.perf_counter()
+    est = eng.estimate(8)
+    _sync()
+    secs = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[full] u12 gather on rmat(20) n={g.n} m={g.m}: "
+          f"count={est['count']!r} std={est['std']!r} batch="
+          f"{eng.batch_size} s_per_coloring={secs / 8:.4f} (estimate "
+          f"{secs:.3f} s, engine build {built:.3f} s) operand bytes="
+          f"{prep.nbytes} modeled peak={eng.peak_table_bytes} "
+          f"launches={launches} max_memory_allocated={peak} "
+          f"({peak / GIB:.2f} GiB)", flush=True)
+    if not (math.isfinite(est["count"]) and est["count"] > 0
+            and len(est["samples"]) == 8):
+        raise AssertionError(f"bad estimate {est}")
+    if launches["spmm_bsr"] or launches["fused_spmm_ema"] \
+            or not launches["spmm_gather"] or not launches["ema"]:
+        raise AssertionError(f"path B's launches are off: {launches}")
+    return launches, eng.batch_size
+
+
+def _profile(label: str, fn) -> None:
+    """Run ``fn`` under ``torch.profiler``: the host wall time, the device's
+    busy time (the union of kernel intervals) and idle share, and device
+    time by kernel, the largest first."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        q.run()
+        fn()
         _sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.Counter()
@@ -320,11 +663,42 @@ def phase_profile(g) -> None:
         elif b > end:
             busy += b - end
             end = b
-    print(f"[profile] u12 grid_2d(1024,1024) batch of 4: wall "
-          f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, "
-          f"idle share {1 - busy / wall_us:.3f}", flush=True)
+    print(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}",
+          flush=True)
     for name, us in by_name.most_common(8):
         print(f"[profile]   {us / 1e3:10.2f} ms  {name[:100]}", flush=True)
+
+
+def phase_profile(g, g_rmat) -> None:
+    """Where the time goes: one batch of each full-size path, its engine
+    built outside the profiled window."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.engines import CountingEngine
+
+    q = api.CompiledQuery(g, api.CountQuery(
+        templates="u12", max_iters=4, round_size=4,
+        memory_budget_bytes=32 * GIB))
+    _profile("u12 grid_2d(1024,1024) batch of 4", q.run)
+    del q
+    torch.cuda.empty_cache()
+    q = api.compile_query(g, api.CountQuery(
+        templates=tuple(census_specs(10)), plan="dedup",
+        memory_budget_bytes=CENSUS_BUDGET, max_iters=2, round_size=2))
+    _profile(f"k=10 census grid_2d(1024,1024) batch of "
+             f"{q.engine.batch_size}", q.run)
+    del q
+    torch.cuda.empty_cache()
+    eng = CountingEngine(g_rmat, "u12", plan="optimized",
+                         spmm_method="gather", fuse_spmm_ema=False,
+                         memory_budget_bytes=CENSUS_BUDGET)
+    b = eng.batch_size
+    _profile(f"u12 gather rmat(20) batch of {b}",
+             lambda: eng.count_iterations_batch(range(b)))
+    del eng
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -344,7 +718,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays IEEE
     torch.backends.cudnn.allow_tf32 = False
     print(_device_line(), flush=True)
-    from repro_torch.graph.generators import grid_2d
+    from repro_torch.graph.generators import grid_2d, rmat
 
     phase_build()
     _sync()
@@ -352,28 +726,60 @@ def main() -> int:
     kern = phase_kernels(g)
     _sync()
     phase_parity()
+    phase_parity_census()
+    phase_parity_gather()
     _sync()
-    launches = phase_full(g)
+    by_path = {"u12_grid": phase_full(g)}
     _sync()
-    phase_profile(g)
+    by_path["census10_grid"], batch_a, group_a = phase_census_full(g)
     _sync()
-    replaces = {
-        "spmm_bsr": ("src/repro_torch/csrc/spmm_bsr.cu",
+    group = phase_group_kernel(g, batch_a, group_a)
+    _sync()
+    t0 = time.perf_counter()
+    g_rmat = rmat(20)
+    print(f"[build] rmat(20) on the host: n={g_rmat.n} m={g_rmat.m} in "
+          f"{time.perf_counter() - t0:.1f} s (outside the timed loops); "
+          f"other operands would hold {layout_sizes(g_rmat)}", flush=True)
+    by_path["u12_rmat20"], batch_b = phase_gather_full(g_rmat)
+    _sync()
+    gather = phase_gather_kernel(g_rmat, batch_b)
+    _sync()
+    phase_profile(g, g_rmat)
+    _sync()
+    # each kernel's numbers at the f32 shapes of the path it was added
+    # for; its launches are those of that path's full run
+    rows_of = {
+        "spmm_bsr": ("u12_grid", kern[("spmm_bsr", torch.float32, 4)],
+                     "src/repro_torch/csrc/spmm_bsr.cu",
                      "src/repro/kernels/spmm/pallas_bsr.py:59"),
-        "ema": ("src/repro_torch/csrc/ema.cu",
+        "ema": ("u12_grid", kern[("ema", torch.float32, 4)],
+                "src/repro_torch/csrc/ema.cu",
                 "src/repro/kernels/ema/pallas_ema.py:74"),
-        "fused_spmm_ema": ("src/repro_torch/csrc/fused_spmm_ema.cu",
+        "fused_spmm_ema": ("u12_grid",
+                           kern[("fused_spmm_ema", torch.float32, 4)],
+                           "src/repro_torch/csrc/fused_spmm_ema.cu",
                            "src/repro/kernels/fused/pallas_fused.py:143"),
+        "fused_spmm_ema_shared": (
+            "census10_grid", group[torch.float32],
+            "src/repro_torch/csrc/fused_spmm_ema_shared.cu",
+            "src/repro/kernels/fused/pallas_fused.py:305"),
+        "spmm_gather": ("u12_rmat20", gather[(torch.float32, 12)],
+                        "src/repro_torch/csrc/spmm_gather.cu",
+                        "src/repro/kernels/spmm/pallas_gather.py:87"),
     }
     rows = []
-    for name, (source, rep) in replaces.items():
-        m = kern[(name, torch.float32, 4)]     # the full run's shapes
+    for name, (path, m, source, rep) in rows_of.items():
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": rep, "launches": launches[name],
+                     "replaces": rep, "launches": by_path[path][name],
+                     "path": path,
+                     "launches_by_path": {p: c[name]
+                                          for p, c in by_path.items()},
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"]})
+        if rows[-1]["launches"] == 0:
+            raise AssertionError(f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,20 @@
 """The PGBSC counting engine on PyTorch (paper §4.3-4.5).
 
-Combination-major ``(B, C, N)`` count tables, one BSR SpMM ``Y = M_p @ A``
-per distinct passive child and an eMA per plan node — or both in one fused
-kernel launch where the passive child has a single consumer and the card's
-shared-memory fit model admits it. The walk is the shared
-:class:`~repro_torch.core.executor.PlanExecutor`; the kernels are
-``kernels/{spmm,ema,fused}``, which launch CUDA on the card and run their
-plain PyTorch versions on the CPU.
+Combination-major ``(B, C, N)`` count tables, one SpMM ``Y = M_p @ A``
+per distinct passive child (over the BSR blocks or, with
+``spmm_method="gather"``, the edge stream) and an eMA per plan node — or
+both in one fused kernel launch where the passive child has a single
+consumer, or one shared-passive group launch where several template roots
+share it, and the card's shared-memory fit model admits it. The walk is
+the shared :class:`~repro_torch.core.executor.PlanExecutor`; the kernels
+are ``kernels/{spmm,ema,fused}``, which launch CUDA on the card and run
+their plain PyTorch versions on the CPU.
 
-A port of the JAX package's ``core/engines.py`` for ``engine="pgbsc"`` and
-one template. The FASCIA/PFASCIA engines, the other SpMM backends, vertex
-reordering, multi-template bundles and colorset chunking are not ported
-yet and raise ``NotImplementedError`` (see ``ROADMAP.md``).
+A port of the JAX package's ``core/engines.py`` for ``engine="pgbsc"``,
+one template or a fused bundle of same-k templates. The FASCIA/PFASCIA
+engines, the ``segment``/``ell``/``dense`` SpMM backends, vertex
+reordering and colorset chunking are not ported yet and raise
+``NotImplementedError`` (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch.core import colorsets as cs
 from repro_torch.core import executor as pexec
-from repro_torch.core.templates import ExecutionPlan, as_template
+from repro_torch.core.templates import (ExecutionPlan, as_template,
+                                        compile_fused_plan)
 from repro_torch.device import CARD_DTYPES, accum_dtype, resolve_device
 from repro_torch.graph.coloring import batch_colorings
 from repro_torch.graph.structure import Graph
@@ -39,13 +43,23 @@ _TODO = "not ported yet (ROADMAP.md, Queue 1)"
 
 
 class CountingEngine:
-    """Counts colorful embeddings of one template for given colorings.
+    """Counts colorful embeddings of one template — or a fused bundle of
+    same-k templates — for given colorings.
 
     :meth:`count_colorful` takes an ``(n,)`` coloring and returns the sum
     over the root table (= alpha x #colorful copies) and the root table;
     :meth:`count_colorful_batch` takes ``(B, n)``; :meth:`estimate` runs
     the color-coding estimator over colorings drawn on the engine's device
     from the same stream as the JAX package (``graph/coloring.py``).
+
+    A list or tuple of equal-k templates builds ONE fused plan
+    (:func:`~repro_torch.core.templates.compile_fused_plan`): canonical
+    rooted sub-templates shared across the bundle are computed once per
+    coloring, every template's root table is a kept output of the walk, and
+    totals come back as ``(T,)`` per coloring (``(B, T)`` batched) with a
+    T-tuple of root tables; :meth:`estimate_many` gives one estimate per
+    template. ``n_spmm_cols_dispatched`` counts the SpMM column-ops the
+    dispatched colorings cost, so the savings are observable.
 
     ``memory_budget_bytes`` becomes the coloring batch size through the
     executor's memory model (fused nodes are charged no neighbor-sum
@@ -62,40 +76,67 @@ class CountingEngine:
                  device=None):
         if engine != "pgbsc":
             raise NotImplementedError(f"engine {engine!r} is {_TODO}")
-        if spmm_method != "bsr":
+        if spmm_method not in spmm_ops.METHODS:
             raise NotImplementedError(
                 f"SpMM backend {spmm_method!r} is {_TODO}; the port's "
-                "backend is 'bsr'")
+                f"backends are {spmm_ops.METHODS}")
         if reorder:
             raise NotImplementedError(f"reorder={reorder!r} is {_TODO}")
         if isinstance(template, (list, tuple)):
-            raise NotImplementedError(
-                f"multi-template bundles are {_TODO}; pass one template")
+            if not template:
+                raise ValueError("engine needs at least one template")
+            templates = tuple(as_template(t) for t in template)
+        else:
+            templates = (as_template(template),)
+        ks = sorted({t.k for t in templates})
+        if len(ks) != 1:
+            raise ValueError(
+                f"one engine fuses equal-k templates only, got k={ks}; "
+                "group by k first (repro_torch.api.count_many does)")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype not in CARD_DTYPES:
             raise TypeError(f"the card runs {sorted(map(str, CARD_DTYPES))} "
                             f"tables, got {dtype}")
         self.g = g
-        self.template = as_template(template)
+        self.templates = templates
+        self.template = templates[0]
+        self.fused = len(templates) > 1
         self.engine = engine
-        self.k = self.template.k
+        self.spmm_method = spmm_method
+        self.k = ks[0]
         self.dtype = dtype
         self.memory_budget_bytes = memory_budget_bytes
         plan_name = plan or "plain"
-        self.plan: ExecutionPlan = {
-            "plain": self.template.plan, "dedup": self.template.plan_dedup,
-            "optimized": self.template.plan_optimized}[plan_name]
+        if self.fused:
+            if plan_name == "plain":
+                raise ValueError(
+                    "plan='plain' is meaningless for a fused multi-template "
+                    "engine: cross-template fusion IS canonical dedup; use "
+                    "plan='dedup' or plan='optimized'")
+            fp = compile_fused_plan(templates,
+                                    optimize=(plan_name == "optimized"))
+            self.plan: ExecutionPlan = fp.plan
+            self.roots: tuple[int, ...] = fp.roots
+        else:
+            self.plan = {
+                "plain": self.template.plan, "dedup": self.template.plan_dedup,
+                "optimized": self.template.plan_optimized}[plan_name]
+            self.roots = (self.plan.n_nodes - 1,)
         self.fuse_spmm_ema = bool(fuse_spmm_ema)
-        # per-node fusion decisions (idx -> "admitted" | rejection reason);
-        # empty when fusion was not requested
+        # per-node fusion decisions (idx -> "admitted" | "admitted_shared" |
+        # rejection reason); empty when fusion was not requested
         self.fusion_report: dict[int, str] = {}
-        fused_nodes = self._fused_candidates() if self.fuse_spmm_ema else ()
+        fused_nodes, fused_groups = (self._fused_candidates()
+                                     if self.fuse_spmm_ema else ((), ()))
 
         # budget -> (batch size, liveness schedule); the memory model reads
-        # only the itemsize, so it gets a numpy float of the same width
+        # only the itemsize, so it gets a numpy float of the same width.
+        # Every fused root is a kept output (never freed by the walk).
+        keep = tuple(i for i in self.roots if i != self.plan.n_nodes - 1)
         self.exec_choice = pexec.pick_execution(
             self.plan, self.k, g.n, memory_budget_bytes=memory_budget_bytes,
-            dtype=np.dtype(f"f{dtype.itemsize}"), fused=fused_nodes)
+            dtype=np.dtype(f"f{dtype.itemsize}"), keep=keep,
+            fused=fused_nodes, fused_groups=fused_groups)
         self.schedule = self.exec_choice.schedule
         if not self.exec_choice.fits:
             raise NotImplementedError(
@@ -106,42 +147,97 @@ class CountingEngine:
         self.batch_size = int(batch_size if batch_size is not None
                               else self.exec_choice.batch_size)
         self._materialize()
+        self.spmm_cols_per_coloring = self._spmm_cols_per_coloring()
+        # SpMM column-ops the dispatched colorings cost (the fused-plan
+        # savings metric)
+        self.n_spmm_cols_dispatched = 0
 
-    def _fused_candidates(self) -> tuple[int, ...]:
-        """Plan nodes that run the fused SpMM->eMA kernel.
+    def _fused_candidates(self) -> tuple[tuple[int, ...],
+                                         tuple[tuple[int, ...], ...]]:
+        """Plan nodes that run a fused SpMM->eMA kernel, and the
+        shared-passive groups among them — returns ``(fused, groups)``.
 
-        A node is admitted when it is the sole consumer of its passive child
-        and the child's ``C(k, t_p)`` rows fit one CUDA block's shared
-        memory (:func:`~repro_torch.kernels.fused.ops.fused_fits_smem`).
-        Consumers that share a passive child stay on the y-cache (one SpMM,
-        then an eMA each): the shared-passive group kernel is not ported
-        yet. Every decision lands in :attr:`fusion_report` and the
+        A sole consumer of its passive child fuses alone when the child's
+        ``C(k, t_p)`` rows fit one CUDA block's shared memory
+        (:func:`~repro_torch.kernels.fused.ops.fused_fits_smem`).
+
+        Consumers SHARING a passive child fuse as a group: one launch of
+        the group kernel whose SpMM leg runs once into shared memory (the
+        y-cache's dedup win without the device-memory round trip). A group
+        is admitted only when it covers the passive's ENTIRE consumer set
+        (a partial group would re-run the SpMM for the leftovers), when no
+        member's active child is itself a member (the launch cannot consume
+        its own outputs), when the card's group fit model admits it
+        (:func:`~repro_torch.kernels.fused.ops.fused_group_fits_smem`), and
+        when the members can be made consecutive in program order (no
+        outside consumer of a member sits at or before the latest member).
+        Chain-shaped consumer sets fail the intra-dependency test by
+        construction and stay on the y-cache; the win case is template
+        ROOTS sharing a canonical passive sub-template.
+
+        Every decision lands in :attr:`fusion_report` and the
         ``fusion_admissions_total`` counters.
         """
         consumers: dict[int, list[int]] = {}
-        for idx, node in enumerate(self.plan.nodes):
-            if not node.is_leaf:
-                consumers.setdefault(node.passive, []).append(idx)
-        out: list[int] = []
+        cons_any: dict[int, list[int]] = {}
         for idx, node in enumerate(self.plan.nodes):
             if node.is_leaf:
                 continue
-            c_p = comb(self.k, self.plan.nodes[node.passive].size)
+            consumers.setdefault(node.passive, []).append(idx)
+            cons_any.setdefault(node.active, []).append(idx)
+            cons_any.setdefault(node.passive, []).append(idx)
+
+        def c_p(idx: int) -> int:
+            return comb(self.k, self.plan.nodes[self.plan.nodes[idx].passive]
+                        .size)
+
+        def order_ok(members: list[int]) -> bool:
+            # regrouping moves members to the LAST member's slot; any
+            # outside consumer of a member scheduled at or before that slot
+            # would then precede its producer
+            anchor = max(members)
+            mset = set(members)
+            return all(c > anchor or c in mset
+                       for m in members for c in cons_any.get(m, []))
+
+        out: list[int] = []
+        groups: list[tuple[int, ...]] = []
+        for idx, node in enumerate(self.plan.nodes):
+            if node.is_leaf:
+                continue
             if len(consumers[node.passive]) > 1:
+                # members of an accepted group are upgraded below
                 self.fusion_report[idx] = "multi_consumer"
-            elif fused_ops.fused_fits_smem(c_p, self.dtype):
+            elif fused_ops.fused_fits_smem(c_p(idx), self.dtype):
                 self.fusion_report[idx] = "admitted"
                 out.append(idx)
             else:
                 self.fusion_report[idx] = "smem_overflow"
+        for p, cons in sorted(consumers.items()):
+            if len(cons) < 2:
+                continue
+            mset = set(cons)
+            if (not any(self.plan.nodes[m].active in mset for m in cons)
+                    and fused_ops.fused_group_fits_smem(len(cons),
+                                                        c_p(cons[0]),
+                                                        self.dtype)
+                    and order_ok(cons)):
+                grp = tuple(sorted(cons))
+                groups.append(grp)
+                for m in grp:
+                    self.fusion_report[m] = "admitted_shared"
+                    out.append(m)
         for verdict in self.fusion_report.values():
             if verdict == "admitted":
                 _metrics.counter("fusion_admissions_total",
                                  outcome="admitted").inc()
+            elif verdict == "admitted_shared":
+                _metrics.counter("fusion_admissions_total",
+                                 outcome="admitted", mode="shared").inc()
             else:
                 _metrics.counter("fusion_admissions_total",
                                  outcome="rejected", reason=verdict).inc()
-        return tuple(out)
+        return tuple(sorted(out)), tuple(groups)
 
     # -------------------------------------------------------- device state
     def _materialize(self) -> None:
@@ -151,8 +247,18 @@ class CountingEngine:
             self._materialize_inner()
 
     def _materialize_inner(self) -> None:
-        self._bsr = spmm_ops.prepare(self.g, dtype=self.dtype,
-                                     device=self.device)
+        self._spmm_prep = spmm_ops.prepare(self.g, self.spmm_method,
+                                           dtype=self.dtype,
+                                           device=self.device)
+        # fused nodes walk the BSR blocks whatever the SpMM operand is
+        if not self.schedule.fused:
+            self._fused_prep = None
+        elif self.spmm_method == "bsr":
+            self._fused_prep = self._spmm_prep
+        else:
+            self._fused_prep = spmm_ops.prepare(self.g, "bsr",
+                                                dtype=self.dtype,
+                                                device=self.device)
         # static split tables per internal plan node
         self._splits: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         for idx, node in enumerate(self.plan.nodes):
@@ -186,7 +292,7 @@ class CountingEngine:
 
     def release(self) -> None:
         """Drop the device operands; the next count call rebuilds them."""
-        self._bsr = None
+        self._spmm_prep = self._fused_prep = None
         self._splits = {}
         self._released = True
 
@@ -195,21 +301,25 @@ class CountingEngine:
             self._materialize()
 
     # ------------------------------------------------------------------ api
-    def count_colorful(self, colors) -> tuple[torch.Tensor, torch.Tensor]:
+    def count_colorful(self, colors):
         """-> (sum over the root table, root table) for one ``(n,)``
-        coloring."""
+        coloring; a fused engine returns a ``(T,)`` sum and a T-tuple of
+        root tables."""
         totals, roots = self.count_colorful_batch(
             torch.as_tensor(colors).reshape(1, -1))
+        if self.fused:
+            return totals[0], tuple(r[0] for r in roots)
         return totals[0], roots[0]
 
-    def count_colorful_batch(self, colorings, batch_size: int | None = None
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    def count_colorful_batch(self, colorings, batch_size: int | None = None):
         """Batched :meth:`count_colorful` over ``(B, n)`` colorings.
 
         -> (totals (B,), root tables (B, 1, n)), in the accumulator dtype
-        and the storage dtype. Chunks of ``batch_size`` colorings (default:
-        the budget-derived batch) run one plan walk each; a ragged tail
-        runs at its own size (eager PyTorch has no compiled shape to keep).
+        and the storage dtype; a fused engine returns totals ``(B, T)`` and
+        a T-tuple of root-table batches. Chunks of ``batch_size`` colorings
+        (default: the budget-derived batch) run one plan walk each; a
+        ragged tail runs at its own size (eager PyTorch has no compiled
+        shape to keep).
         """
         self._ensure()
         colorings = torch.as_tensor(colorings).to(self.device)
@@ -217,22 +327,31 @@ class CountingEngine:
             raise ValueError(f"expected (B, n) colorings, got "
                              f"{tuple(colorings.shape)}")
         b = colorings.shape[0]
+        if b == 0:
+            acc = accum_dtype(self.dtype)
+            if self.fused:
+                return (torch.zeros((0, len(self.templates)), dtype=acc,
+                                    device=self.device), ())
+            return (torch.zeros(0, dtype=acc, device=self.device),
+                    torch.zeros((0, 1, self.g.n), dtype=self.dtype,
+                                device=self.device))
         bs = min(batch_size or self.batch_size or b, b) or 1
         totals, roots = [], []
         for base in range(0, b, bs):
             tot, root = self._run(colorings[base: base + bs])
             totals.append(tot)
             roots.append(root)
-        if not totals:
-            return (torch.zeros(0, dtype=accum_dtype(self.dtype),
-                                device=self.device),
-                    torch.zeros((0, 1, self.g.n), dtype=self.dtype,
-                                device=self.device))
+        if self.fused:
+            return torch.cat(totals), tuple(
+                torch.cat([r[j] for r in roots])
+                for j in range(len(self.roots)))
         return torch.cat(totals), torch.cat(roots)
 
     def count_iterations_batch(self, iterations, seed: int = 0,
                                batch_size: int | None = None) -> dict:
-        """``{iteration id: colorful sum}`` for explicit iteration ids.
+        """``{iteration id: colorful sum}`` for explicit iteration ids — a
+        float per id, or a ``(T,)`` float64 array per id for a fused engine
+        (template order = ``self.templates``).
 
         The colorings are drawn on the engine's device from
         ``fold_in(PRNGKey(seed), id)`` — the JAX package's stream, bit for
@@ -249,29 +368,47 @@ class CountingEngine:
             colorings = batch_colorings(seed, chunk, self.g.n, self.k,
                                         device=self.device)
             totals, _ = self._run(colorings)
-            for it, v in zip(chunk, totals.tolist()):
-                out[it] = float(v)
+            vals = totals.double().cpu().numpy()
+            for i, it in enumerate(chunk):
+                out[it] = vals[i].copy() if self.fused else float(vals[i])
         return out
 
     def estimate(self, n_iters: int, seed: int = 0,
                  start_iteration: int = 0,
                  batch_size: int | None = None) -> dict:
         """Color-coding estimate averaged over ``n_iters`` colorings."""
+        if self.fused:
+            raise ValueError("estimate() is single-template; fused engines "
+                             "use estimate_many()")
+        return self.estimate_many(n_iters, seed=seed,
+                                  start_iteration=start_iteration,
+                                  batch_size=batch_size)[0]
+
+    def estimate_many(self, n_iters: int, seed: int = 0,
+                      start_iteration: int = 0,
+                      batch_size: int | None = None) -> list[dict]:
+        """Per-template color-coding estimates from ONE fused plan run, one
+        :meth:`estimate`-shaped dict per template (``self.templates``
+        order); every template's samples come from the same colorings."""
         p = cs.colorful_probability(self.k)
         ids = range(start_iteration, start_iteration + n_iters)
         per = self.count_iterations_batch(ids, seed=seed,
                                           batch_size=batch_size)
-        alpha = self.template.automorphisms
-        samples = [per[it] / (alpha * p) for it in ids]
-        arr = np.asarray(samples)
-        return {
-            "count": float(arr.mean()),
-            "std": float(arr.std(ddof=1)) if len(arr) > 1 else 0.0,
-            "samples": samples,
-            "n_iters": n_iters,
-            "alpha": alpha,
-            "colorful_probability": p,
-        }
+        vals = np.stack([np.atleast_1d(np.asarray(per[it])) for it in ids])
+        results = []
+        for j, t in enumerate(self.templates):
+            alpha = t.automorphisms
+            samples = [float(v) / (alpha * p) for v in vals[:, j]]
+            arr = np.asarray(samples)
+            results.append({
+                "count": float(arr.mean()),
+                "std": float(arr.std(ddof=1)) if len(arr) > 1 else 0.0,
+                "samples": samples,
+                "n_iters": n_iters,
+                "alpha": alpha,
+                "colorful_probability": p,
+            })
+        return results
 
     # ------------------------------------------------------------- the walk
     def _leaf_table_cn(self, colors: torch.Tensor) -> torch.Tensor:
@@ -280,17 +417,17 @@ class CountingEngine:
         ks = torch.arange(self.k, dtype=colors.dtype, device=colors.device)
         return (ks[:, None] == colors[..., None, :]).to(self.dtype)
 
-    def _run(self, colorings: torch.Tensor
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+    def _run(self, colorings: torch.Tensor):
         """One plan walk for a ``(B, n)`` chunk -> (totals, root tables)."""
-        with _tracing.span("engine.dispatch", engine=self.engine,
-                           batch=int(colorings.shape[0])):
+        b = int(colorings.shape[0])
+        with _tracing.span("engine.dispatch", engine=self.engine, batch=b):
             totals, root = self._build_pgbsc()(colorings)
             _tracing.sync_ready(totals)
+        self.n_spmm_cols_dispatched += self.spmm_cols_per_coloring * b
         return totals, root
 
     def _build_pgbsc(self):
-        splits, prep = self._splits, self._bsr
+        splits, prep, fprep = self._splits, self._spmm_prep, self._fused_prep
         runner = pexec.PlanExecutor(self.plan, self.schedule)
 
         def passive_op(p_idx, m_p):
@@ -306,17 +443,61 @@ class CountingEngine:
             # fused node: SpMM and eMA in one launch; the neighbor sums
             # live only in shared memory
             ia, ip = splits[idx]
-            return fused_ops.fused_spmm_ema(m_a, m_p, ia, ip, prep)
+            return fused_ops.fused_spmm_ema(m_a, m_p, ia, ip, fprep)
 
-        # sub-f32 storage sums its root table in the accumulator dtype
+        def combine_group(members, m_as, m_p):
+            # shared-passive group: ONE launch computes the passive child's
+            # neighbor sums once in shared memory and applies every
+            # member's split combination against them
+            return fused_ops.fused_spmm_ema_shared(
+                m_as, m_p, [splits[m][0] for m in members],
+                [splits[m][1] for m in members], fprep)
+
+        # sub-f32 storage sums its root tables in the accumulator dtype
         acc_dt = accum_dtype(self.dtype)
 
         def run(colors: torch.Tensor):
             leaf = self._leaf_table_cn(colors)
-            root = runner.run(leaf, passive_op=passive_op, combine=combine,
+            outs = runner.run(leaf, passive_op=passive_op, combine=combine,
                               combine_direct=combine_direct,
-                              on_step=self._peak_probe)
-            return root.to(acc_dt).sum(dim=(-2, -1)), root
+                              combine_group=combine_group,
+                              on_step=self._peak_probe, outputs=self.roots)
+            if not self.fused:
+                root = outs[0]
+                return root.to(acc_dt).sum(dim=(-2, -1)), root
+            # one fused walk, one (..., T) totals vector — template j's
+            # entry comes from its own root table
+            totals = torch.stack(
+                [r.to(acc_dt).sum(dim=(-2, -1)) for r in outs], dim=-1)
+            return totals, outs
 
         return run
 
+    def _spmm_cols_per_coloring(self) -> int:
+        """Static SpMM (passive-transform) column count of one coloring.
+
+        ``C(k, t_p)`` columns once per *distinct* passive child (the
+        executor's y-cache), which is where fused plans win: a passive
+        sub-template shared across templates is one SpMM for the whole
+        bundle. A shared-passive fused GROUP keeps that once-per-child
+        cost; singleton-fused nodes bypass the cache and pay per consumer.
+        """
+        cols = 0
+        seen: set[int] = set()
+        counted_groups: set[tuple[int, ...]] = set()
+        fused_set = self.schedule.fused_set
+        group_of = self.schedule.group_of
+        for idx, node in enumerate(self.plan.nodes):
+            if node.is_leaf:
+                continue
+            c_p = comb(self.k, self.plan.nodes[node.passive].size)
+            if idx in group_of:
+                if group_of[idx] not in counted_groups:
+                    counted_groups.add(group_of[idx])
+                    cols += c_p
+            elif idx in fused_set:
+                cols += c_p
+            elif node.passive not in seen:
+                seen.add(node.passive)
+                cols += c_p
+        return cols

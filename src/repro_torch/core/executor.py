@@ -20,11 +20,11 @@ SpMM result) alive for the whole bottom-up walk. Three cooperating pieces:
   batch size.
 
 This module follows the JAX package's ``core/executor.py`` for the walks
-the port runs: y-cached SpMM -> eMA nodes and singleton fused nodes. It
-leaves out what only unported paths use — colorset chunking, shared-passive
-groups, cache-less (FASCIA) walks and the kept roots of multi-template
-plans — which come over with their slices (ROADMAP.md). One more change:
-:meth:`PlanExecutor._live_bytes` sizes torch tensors.
+the port runs: y-cached SpMM -> eMA nodes, singleton fused nodes,
+shared-passive fused groups and the kept roots of multi-template plans. It
+leaves out what only unported paths use — colorset chunking and cache-less
+(FASCIA) walks — which come over with their slices (ROADMAP.md). One more
+change: :meth:`PlanExecutor._live_bytes` sizes torch tensors.
 """
 
 from __future__ import annotations
@@ -70,16 +70,33 @@ class Schedule:
         directly tile-by-tile and the ``C(k,t_p) x N`` neighbor-sum table is
         never materialized — the model charges such a step no y rows at all.
         Fused nodes bypass the y-cache.
+    ``fused_groups``
+        Disjoint tuples of ``fused`` nodes sharing ONE passive child that
+        run as a single shared-passive launch: the members sit consecutively
+        in ``order`` and all their tables materialize at the group's first
+        member's step (the leader), with the SpMM leg paid once for the
+        whole group. Every group member is also listed in ``fused``.
+    ``keep``
+        Extra output nodes (beyond the implicit last node) that are never
+        freed — fused multi-template plans keep every template's root table
+        so :meth:`PlanExecutor.run` can return all of them.
     """
 
     order: tuple[int, ...]
     free_tables: tuple[tuple[int, ...], ...]
     free_y: tuple[tuple[int, ...], ...]
+    keep: tuple[int, ...] = ()
     fused: tuple[int, ...] = ()
+    fused_groups: tuple[tuple[int, ...], ...] = ()
 
     @property
     def fused_set(self) -> frozenset[int]:
         return frozenset(self.fused)
+
+    @property
+    def group_of(self) -> dict[int, tuple[int, ...]]:
+        """Member node index -> its shared-passive group tuple."""
+        return {m: grp for grp in self.fused_groups for m in grp}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +128,31 @@ def _validate_order(plan, order) -> dict[int, int]:
     return pos
 
 
-def liveness(plan, order, *, fused: tuple[int, ...] = ()
+def _regroup_order(order, groups):
+    """Move each group's members so they sit consecutively at the position
+    of the group's LATEST member (ascending by original position). Children
+    of the moved members and consumers of any member can be violated by the
+    move — the caller re-validates with :func:`_validate_order` and drops
+    groups whose regrouped order is not topological.
+    """
+    pos = {i: s for s, i in enumerate(order)}
+    anchor_of: dict[int, tuple[int, ...]] = {}
+    member: set[int] = set()
+    for grp in groups:
+        anchor = max(grp, key=lambda i: pos[i])
+        anchor_of[anchor] = tuple(sorted(grp, key=lambda i: pos[i]))
+        member.update(grp)
+    out: list[int] = []
+    for i in order:
+        if i in anchor_of:
+            out.extend(anchor_of[i])
+        elif i not in member:
+            out.append(i)
+    return tuple(out)
+
+
+def liveness(plan, order, *, keep: tuple[int, ...] = (),
+             fused: tuple[int, ...] = ()
              ) -> tuple[tuple[tuple[int, ...], ...],
                         tuple[tuple[int, ...], ...]]:
     """Last-use analysis -> (free_tables, free_y), parallel to ``order``.
@@ -121,7 +162,8 @@ def liveness(plan, order, *, fused: tuple[int, ...] = ()
     child directly; the step that converts it into its cached y-entry (the
     first unfused passive consumer in ``order``). A y-cache entry dies at
     its last unfused passive consumer. The root table is never freed (it is
-    the result).
+    the result); neither is any node in ``keep`` — the extra output roots
+    of a fused multi-template plan.
     """
     pos = _validate_order(plan, order)
     fset = frozenset(fused)
@@ -145,8 +187,9 @@ def liveness(plan, order, *, fused: tuple[int, ...] = ()
         y_last[p] = max(steps)
     free_tables: list[tuple[int, ...]] = [() for _ in order]
     free_y: list[tuple[int, ...]] = [() for _ in order]
+    keepset = {n - 1} | set(keep)
     for i, last in table_last.items():
-        if i != n - 1:
+        if i not in keepset:
             free_tables[last] = free_tables[last] + (i,)
     for p, last in y_last.items():
         free_y[last] = free_y[last] + (p,)
@@ -157,11 +200,14 @@ def liveness(plan, order, *, fused: tuple[int, ...] = ()
 # the analytic memory model (row units; bytes = rows * n * itemsize * batch)
 # --------------------------------------------------------------------------
 def _step_peaks(plan, k: int, order, free_tables, free_y, *,
-                fused: frozenset[int] = frozenset()) -> list[int]:
+                fused: frozenset[int] = frozenset(),
+                fused_groups: tuple[tuple[int, ...], ...] = ()) -> list[int]:
     """Modeled live table rows at each step of the walk (working buffers
     included). Mirrors :meth:`PlanExecutor.run` exactly, including the
-    mid-step release of a passive table right after its y entry is built."""
+    mid-step release of a passive table right after its y entry is built
+    and the all-members-at-once materialization of shared-passive groups."""
     rows = [comb(k, nd.size) for nd in plan.nodes]
+    group_of = {m: grp for grp in fused_groups for m in grp}
     leaf_idxs = [i for i, nd in enumerate(plan.nodes) if nd.is_leaf]
     free_step: dict[int, int] = {}
     for s, fr in enumerate(free_tables):
@@ -187,7 +233,17 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
             peaks.append(cur())
         else:
             out_r = rows[idx]
-            if idx in fused:
+            if idx in group_of:
+                # shared-passive group: every member's table materializes at
+                # the leader step (one launch); later member steps add nothing
+                grp = group_of[idx]
+                if not any(m in live_t for m in grp):
+                    peaks.append(cur() + sum(rows[m] for m in grp))
+                    for m in grp:
+                        live_t[m] = rows[m]
+                else:
+                    peaks.append(cur())
+            elif idx in fused:
                 # fused SpMM->eMA kernel: the neighbor-sum table lives only
                 # in shared memory — no device rows beyond the output table
                 peaks.append(cur() + out_r)
@@ -217,7 +273,8 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
 def simulate_peak_rows(plan, k: int, schedule: Schedule) -> int:
     """Modeled peak live table rows (1 row = one length-N float vector)."""
     peaks = _step_peaks(plan, k, schedule.order, schedule.free_tables,
-                        schedule.free_y, fused=schedule.fused_set)
+                        schedule.free_y, fused=schedule.fused_set,
+                        fused_groups=schedule.fused_groups)
     return max(peaks) if peaks else 0
 
 
@@ -238,7 +295,7 @@ def peak_table_bytes(plan, k: int, n: int, batch: int = 1,
 # --------------------------------------------------------------------------
 # scheduling
 # --------------------------------------------------------------------------
-def _greedy_order(plan, k: int, *,
+def _greedy_order(plan, k: int, *, keep: tuple[int, ...] = (),
                   fused: frozenset[int] = frozenset()) -> list[int]:
     """Greedy list scheduling: repeatedly evaluate the ready internal node
     whose modeled step peak (then post-step live size) is smallest.
@@ -267,6 +324,9 @@ def _greedy_order(plan, k: int, *,
             if node.passive not in y_refs:
                 refs[buf(node.passive)] = refs.get(buf(node.passive), 0) + 1
             y_refs[node.passive] = y_refs.get(node.passive, 0) + 1
+    # kept outputs (fused-plan roots) are never droppable: pin their buffers
+    for i in keep:
+        refs[buf(i)] = refs.get(buf(i), 0) + plan.n_nodes + 1
 
     live_t: dict[object, int] = {}
     if leaf_idxs:
@@ -332,30 +392,61 @@ def _greedy_order(plan, k: int, *,
 
 def compute_schedule(plan, k: int | None = None, *,
                      order_mode: str = "auto",
-                     fused: tuple[int, ...] = ()) -> Schedule:
+                     keep: tuple[int, ...] = (),
+                     fused: tuple[int, ...] = (),
+                     fused_groups: tuple[tuple[int, ...], ...] = ()
+                     ) -> Schedule:
     """Build a :class:`Schedule` for ``plan``.
 
     ``order_mode``: ``"program"`` keeps the plan's own post-order;
     ``"greedy"`` uses the min-peak list scheduler; ``"auto"`` (default)
     simulates both and keeps the one with the smaller modeled peak.
+    ``keep`` lists extra output nodes never to free (fused-plan roots);
     ``fused`` lists nodes running the fused SpMM->eMA kernel (their
     neighbor-sum table never reaches device memory — see :class:`Schedule`).
+    ``fused_groups`` lists shared-passive groups over ``fused`` nodes: each
+    candidate order is regrouped so members run consecutively (one launch);
+    a group whose regrouped order stops being topological — some member's
+    consumer sits between the members — is dropped for that candidate, and
+    its members leave ``fused`` entirely (back to the y-cache path, which
+    still pays the shared SpMM once; singleton-fusing them would pay it per
+    consumer).
     """
     k = k or plan.k
+    keep = tuple(sorted(set(keep)))
     fused = tuple(sorted(set(fused)))
     candidates: list[tuple[int, ...]] = []
     if order_mode in ("program", "auto"):
         candidates.append(tuple(range(plan.n_nodes)))
     if order_mode in ("greedy", "auto"):
-        candidates.append(tuple(_greedy_order(plan, k,
+        candidates.append(tuple(_greedy_order(plan, k, keep=keep,
                                               fused=frozenset(fused))))
     if not candidates:
         raise ValueError(f"unknown order_mode {order_mode!r}")
     best: Schedule | None = None
     best_peak: int | None = None
     for order in candidates:
-        ft, fy = liveness(plan, order, fused=fused)
-        sched = Schedule(order=order, free_tables=ft, free_y=fy, fused=fused)
+        accepted: list[tuple[int, ...]] = []
+        for grp in fused_groups:
+            gset = set(grp)
+            if any(plan.nodes[m].active in gset or plan.nodes[m].passive
+                   in gset for m in grp):
+                # a single launch cannot consume its own outputs
+                continue
+            trial = _regroup_order(order, accepted + [tuple(grp)])
+            try:
+                _validate_order(plan, trial)
+            except ValueError:
+                continue
+            accepted.append(tuple(grp))
+        if accepted:
+            order = _regroup_order(order, accepted)
+        kept_members = {m for grp in accepted for m in grp}
+        dropped = {m for grp in fused_groups for m in grp} - kept_members
+        fused_c = tuple(i for i in fused if i not in dropped)
+        ft, fy = liveness(plan, order, keep=keep, fused=fused_c)
+        sched = Schedule(order=order, free_tables=ft, free_y=fy, keep=keep,
+                         fused=fused_c, fused_groups=tuple(accepted))
         peak = simulate_peak_rows(plan, k, sched)
         if best_peak is None or peak < best_peak:
             best, best_peak = sched, peak
@@ -368,20 +459,25 @@ def compute_schedule(plan, k: int | None = None, *,
 def pick_execution(plan, k: int, n: int, *,
                    memory_budget_bytes: int | None = None,
                    dtype=np.float32, max_batch: int = MAX_AUTO_BATCH,
-                   fused: tuple[int, ...] = ()) -> ExecutionChoice:
+                   keep: tuple[int, ...] = (),
+                   fused: tuple[int, ...] = (),
+                   fused_groups: tuple[tuple[int, ...], ...] = ()
+                   ) -> ExecutionChoice:
     """Turn one ``memory_budget_bytes`` knob into (batch size, schedule).
 
     The batch is the largest B with ``B * peak(batch=1) <= budget`` (capped
     at ``max_batch``). ``fused`` nodes run the fused SpMM->eMA kernel and
     are charged no neighbor-sum rows, so the same budget admits a larger
-    batch. When even B=1 exceeds the budget the choice is B=1 with
-    ``fits=False``: the JAX package then chunks the passive colorset axis,
-    which the port does not do yet.
+    batch; ``fused_groups`` and ``keep`` pass to :func:`compute_schedule`.
+    When even B=1 exceeds the budget the choice is B=1 with ``fits=False``:
+    the JAX package then chunks the passive colorset axis, which the port
+    does not do yet.
     """
     budget = memory_budget_bytes if memory_budget_bytes is not None \
         else DEFAULT_MEMORY_BUDGET_BYTES
     itemsize = np.dtype(dtype).itemsize
-    sched = compute_schedule(plan, k, fused=fused)
+    sched = compute_schedule(plan, k, keep=keep, fused=fused,
+                             fused_groups=fused_groups)
     per1 = simulate_peak_rows(plan, k, sched) * n * itemsize
     if per1 > budget:
         return ExecutionChoice(1, sched, per1, budget, False)
@@ -395,7 +491,8 @@ def pick_execution(plan, k: int, n: int, *,
 class PlanExecutor:
     """Drives one scheduled plan walk; engine-specific math via callbacks.
 
-    ``run(leaf, passive_op=, combine=, combine_direct=, on_step=)``:
+    ``run(leaf, passive_op=, combine=, combine_direct=, combine_group=,
+    on_step=, outputs=)``:
 
     * ``leaf``: the shared leaf table (every leaf node aliases it);
     * ``passive_op(p_idx, m_p)``: passive transform (SpMM), cached per
@@ -404,6 +501,10 @@ class PlanExecutor:
       transform;
     * ``combine_direct(idx, m_a, m_p)``: fused SpMM->eMA nodes — consumes
       the passive *table* directly;
+    * ``combine_group(members, m_as, m_p)``: one shared-passive launch for a
+      whole ``fused_groups`` group — returns one table per member. Required
+      iff the schedule carries groups; invoked at the group's first member's
+      step, later member steps only process their frees;
     * ``on_step(step, live_bytes)``: optional instrumentation hook called
       twice per step (post-compute and post-free) with the live table bytes
       (unique buffers only), so measured peaks can be checked against
@@ -428,20 +529,45 @@ class PlanExecutor:
         return sum(v.numel() * v.element_size() for v in uniq.values())
 
     def run(self, leaf, *, passive_op, combine, combine_direct=None,
-            on_step=None):
-        """Walk the schedule; returns the root table."""
+            combine_group=None, on_step=None, outputs=None):
+        """Walk the schedule; returns the root table, or — when ``outputs``
+        (a tuple of node indices) is given — one table per output index.
+        Every non-root output must be in the schedule's ``keep`` set."""
         plan, sched = self.plan, self.schedule
         fset = sched.fused_set
-        if fset and combine_direct is None:
+        group_of = sched.group_of
+        if fset - set(group_of) and combine_direct is None:
             raise ValueError("schedule has fused nodes; run() needs a "
                              "combine_direct callback")
+        if group_of and combine_group is None:
+            raise ValueError("schedule carries fused_groups; run() needs a "
+                             "combine_group callback")
         tables: dict[int, object] = {}
         y: dict[int, object] = {}
         root_idx = plan.n_nodes - 1
+        keepset = {root_idx} | set(sched.keep)
+        if outputs is not None:
+            missing = [i for i in outputs if i not in keepset]
+            if missing:
+                raise ValueError(
+                    f"outputs {missing} are not kept by this schedule; "
+                    "build it with compute_schedule(..., keep=...)")
         for step, idx in enumerate(sched.order):
             node = plan.nodes[idx]
             if node.is_leaf:
                 tables[idx] = leaf
+            elif idx in group_of:
+                grp = group_of[idx]
+                if idx not in tables:
+                    # leader step: one launch materializes EVERY member
+                    with _tracing.span("plan.node", idx=idx, size=node.size,
+                                       mode="fused_shared", group=len(grp)):
+                        outs_g = combine_group(
+                            grp, [tables[plan.nodes[m].active] for m in grp],
+                            tables[node.passive])
+                    for m, t in zip(grp, outs_g):
+                        tables[m] = t
+                # non-leader member steps: table already present, only frees
             else:
                 m_a = tables[node.active]
                 fused = idx in fset
@@ -467,10 +593,12 @@ class PlanExecutor:
             if on_step is not None:
                 on_step(step, self._live_bytes(tables, y))
             for i in sched.free_tables[step]:
-                if i != root_idx:
+                if i not in keepset:
                     tables.pop(i, None)
             for p in sched.free_y[step]:
                 y.pop(p, None)
             if on_step is not None:
                 on_step(step, self._live_bytes(tables, y))
+        if outputs is not None:
+            return tuple(tables[i] for i in outputs)
         return tables[root_idx]

@@ -10,11 +10,13 @@ vertices. The resulting binary partition tree is evaluated bottom-up
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import re
 from functools import cached_property
 
 __all__ = ["TreeTemplate", "PlanNode", "ExecutionPlan", "TemplateSpec",
-           "as_template", "STANDARD_TEMPLATES", "get_template"]
+           "FusedPlan", "compile_fused_plan", "as_template",
+           "STANDARD_TEMPLATES", "get_template"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,9 +186,8 @@ class TreeTemplate:
         ``(nodes, cache)`` pair across several same-k templates builds a
         fused plan in which canonically identical rooted sub-templates are
         computed once for all of them (the cross-template generalization of
-        :attr:`plan_dedup`, which the JAX package's multi-template bundles
-        use). Without ``dedup`` keys carry the template identity, so nothing
-        is shared.
+        :attr:`plan_dedup`; see :func:`compile_fused_plan`). Without
+        ``dedup`` keys carry the template identity, so nothing is shared.
         """
 
         def pick_cut(vset: set, root: int) -> int:
@@ -226,6 +227,19 @@ class TreeTemplate:
         from repro_torch.core.automorphism import tree_automorphisms
         return tree_automorphisms(self.edges, self.k)
 
+    @cached_property
+    def rooted_canonical(self) -> str:
+        """AHU canonical string of the full rooted template (structure only:
+        vertex labels and the template name do not enter)."""
+        return self._rooted_canon(tuple(range(self.k)), self.root)
+
+    @cached_property
+    def canonical_hash(self) -> str:
+        """Content hash of :attr:`rooted_canonical`. Two templates with the
+        same hash are the same rooted tree up to relabeling, so their plans,
+        count tables, and estimates coincide."""
+        return hashlib.sha256(self.rooted_canonical.encode()).hexdigest()[:16]
+
     def __repr__(self):
         return f"TreeTemplate({self.name}, k={self.k})"
 
@@ -237,9 +251,10 @@ class TemplateSpec:
     A spec is *data*: an arbitrary tree edge list, a root choice, and an
     optional display name. It coerces from every template-ish thing the
     stack accepts (:meth:`of`: registry names, ``TreeTemplate`` objects,
-    other specs, raw edge lists). The JAX package's spec also serializes
-    and hashes itself for the service's caches; those parts come over with
-    the service stack (ROADMAP.md).
+    other specs, raw edge lists) and exposes the template's
+    :attr:`canonical_hash`, its identity up to relabeling. The JAX
+    package's spec also serializes itself for the service's caches; that
+    comes over with the service stack (ROADMAP.md).
     """
 
     edges: tuple[tuple[int, int], ...]
@@ -278,6 +293,10 @@ class TemplateSpec:
         return self.tree.k
 
     @property
+    def canonical_hash(self) -> str:
+        return self.tree.canonical_hash
+
+    @property
     def automorphisms(self) -> int:
         return self.tree.automorphisms
 
@@ -290,6 +309,50 @@ def as_template(obj) -> TreeTemplate:
     if isinstance(obj, str):
         return get_template(obj)
     return TemplateSpec.of(obj).tree
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """One :class:`ExecutionPlan` serving several same-k templates.
+
+    ``roots[i]`` is the plan-node index holding template *i*'s full-template
+    count table; interior nodes whose rooted canonical forms coincide across
+    templates appear ONCE, so their tables — and the SpMM over their passive
+    children — are computed once per coloring for the whole bundle.
+    """
+
+    plan: ExecutionPlan
+    roots: tuple[int, ...]
+
+    @property
+    def k(self) -> int:
+        return self.plan.k
+
+
+def compile_fused_plan(templates, optimize: bool = True) -> FusedPlan:
+    """Merge the ExecutionPlans of same-k templates into one fused plan by
+    deduplicating canonical rooted sub-templates *across* templates.
+
+    Two sub-templates with the same rooted canonical form have identical
+    count tables for any coloring, so a motif-vector workload of N
+    templates pays for the UNION of their sub-template sets, not the sum.
+    ``optimize`` selects the work-optimal (smallest-passive) cut, as
+    :attr:`TreeTemplate.plan_optimized` does.
+    """
+    trees = [as_template(t) for t in templates]
+    if not trees:
+        raise ValueError("compile_fused_plan needs at least one template")
+    ks = sorted({t.k for t in trees})
+    if len(ks) != 1:
+        raise ValueError(f"a fused plan shares one coloring, so all "
+                         f"templates must have equal k; got k={ks} "
+                         "(group by k first — repro_torch.api.count_many "
+                         "does)")
+    nodes: list[PlanNode] = []
+    cache: dict = {}
+    roots = tuple(t.grow_plan(nodes, cache, dedup=True, optimize=optimize)
+                  for t in trees)
+    return FusedPlan(ExecutionPlan(tuple(nodes), ks[0]), roots)
 
 
 def _path(k: int, name: str) -> TreeTemplate:

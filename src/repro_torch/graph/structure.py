@@ -4,6 +4,8 @@ The host-side canonical representation is CSR (numpy). Device-side formats are
 derived on demand:
 
 * ``edges``        — (src, dst) int32 arrays sorted by dst.
+* ``gather``       — the destination-sorted edge stream with per-vertex and
+                     per-destination-tile run pointers, for the gather SpMM.
 * ``bsr``          — 128x128 dense-ified adjacency tiles (block-sparse rows)
                      for the BSR SpMM and fused SpMM->eMA kernels.
 
@@ -11,10 +13,15 @@ All formats represent the *reverse* traversal used by the DP: for an undirected
 graph, A is symmetric and Y[:, i] = sum_{j in N(i)} M[:, j].
 
 A copy of the JAX package's ``graph/structure.py`` without the formats of
-engines the port does not run yet (ELL lists, gather edge chunks) and
-without the helpers only the service and reordering use (``fingerprint``,
-``bsr_block_stats``, ``to_dense``); ``bsr`` is vectorised (same bytes as the
-reference's block loop, tested).
+engines the port does not run yet (ELL lists) and without the helpers only
+the service and reordering use (``fingerprint``, ``bsr_block_stats``,
+``to_dense``); ``bsr`` is vectorised (same bytes as the reference's block
+loop, tested). The reference's gather operand, ``edge_chunks``, pads every
+(destination tile, source tile) pair to 512-edge chunks so the TPU can
+densify each chunk into a 128x128 tile; the card gathers edges directly,
+so :meth:`Graph.gather_layout` keeps the plain edge stream instead: on a
+social graph most tile pairs hold a few edges, and the padding multiplies
+the stream (``chip_smoke.py`` prints both sizes for ``rmat(20)``).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from functools import cached_property
 
 import numpy as np
 
-__all__ = ["Graph", "BsrMatrix", "BsrLayout"]
+__all__ = ["Graph", "BsrMatrix", "BsrLayout", "GatherLayout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +71,19 @@ class BsrLayout:
     @property
     def n_blocks(self) -> int:
         return int(self.src_tile.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherLayout:
+    """The destination-sorted edge stream of the gather SpMM: destination
+    v's sources are ``src[row_ptr[v]:row_ptr[v+1]]``, and destination tile
+    t (vertices ``t*tile`` to ``(t+1)*tile - 1``) owns edges
+    ``tile_ptr[t]:tile_ptr[t+1]``."""
+
+    src: np.ndarray       # (m,) int32, sorted by destination
+    row_ptr: np.ndarray   # (n + 1,) int64
+    tile_ptr: np.ndarray  # (n_tiles + 1,) int64
+    tile: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +143,18 @@ class Graph:
         dst = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
         src = self.indices.astype(np.int32)
         return src, dst
+
+    def gather_layout(self, tile: int = 128) -> GatherLayout:
+        """The gather SpMM's operand: :attr:`edges_by_dst` with its run
+        pointers, no padding and no blocks."""
+        src, dst = self.edges_by_dst
+        row_ptr = np.searchsorted(
+            dst, np.arange(self.n + 1, dtype=np.int64)).astype(np.int64)
+        n_tiles = -(-self.n // tile)
+        bounds = np.minimum(np.arange(n_tiles + 1, dtype=np.int64) * tile,
+                            self.n)
+        return GatherLayout(src=src, row_ptr=row_ptr,
+                            tile_ptr=row_ptr[bounds], tile=tile)
 
     def bsr_layout(self, tile: int = 128) -> "BsrLayout":
         """Where every edge lands in the BSR stream, without the blocks.

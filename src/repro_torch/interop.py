@@ -2,8 +2,9 @@
 
 The JAX package hands its state over as numpy arrays (the port never
 imports it): the graph's CSR arrays, the BSR block stream of its SpMM or
-fused prep (``np.asarray(engine._spmm_prep.arrays[...])``) and the split
-tables of its plan nodes (``engine._splits``). These functions turn them
+fused prep (``np.asarray(engine._spmm_prep.arrays[...])``), the split
+tables of its plan nodes (``engine._splits``) and, for a multi-template
+bundle, its fused plan's roots (``engine.roots``). These functions turn them
 into the port's ``Graph``, BSR operand and split tables on a device, and
 :func:`engine_from_state` builds a port engine that runs on exactly that
 state instead of rebuilding it.
@@ -47,24 +48,39 @@ def splits_from_arrays(splits: dict, *, device=None) -> dict:
 
 
 def engine_from_state(template, *, n: int, indptr, indices, bsr: dict,
-                      splits: dict, device=None, **engine_kw
+                      splits: dict, roots=None, device=None, **engine_kw
                       ) -> CountingEngine:
     """A port engine on the carried graph, BSR stream and split tables.
 
-    The carried arrays must describe the same operand the port would build
+    ``template`` may be one template or a list of same-k templates (a
+    bundle engine); for a bundle, ``roots`` are the reference fused plan's
+    root node indices (``engine.roots``), which must name the port's own
+    plan roots, so the carried split tables index the same nodes. The
+    carried arrays must describe the same operand the port would build
     (same block count and split-table shapes); the engine then runs on them
     as given. ``engine_kw`` are :class:`CountingEngine` keywords.
     """
     g = graph_from_arrays(n, indptr, indices)
     eng = CountingEngine(g, template, device=device, **engine_kw)
+    if roots is not None and tuple(int(r) for r in roots) != eng.roots:
+        raise ValueError(f"carried roots {tuple(roots)} do not match the "
+                         f"fused plan's {eng.roots}")
+    current = eng._spmm_prep if isinstance(eng._spmm_prep, spmm_ops.BsrPrep) \
+        else eng._fused_prep
+    if current is None:
+        raise ValueError("this engine walks no BSR operand to carry over")
     prep = bsr_from_arrays(n, bsr, dtype=eng.dtype, device=eng.device)
     tables = splits_from_arrays(splits, device=eng.device)
-    if prep.blocks.shape != eng._bsr.blocks.shape:
+    if prep.blocks.shape != current.blocks.shape:
         raise ValueError(f"carried BSR stream {tuple(prep.blocks.shape)} "
                          f"does not fit this graph "
-                         f"{tuple(eng._bsr.blocks.shape)}")
+                         f"{tuple(current.blocks.shape)}")
     if sorted(tables) != sorted(eng._splits) or any(
             tables[i][0].shape != eng._splits[i][0].shape for i in tables):
         raise ValueError("carried split tables do not match the plan")
-    eng._bsr, eng._splits = prep, tables
+    if eng._spmm_prep is current:
+        eng._spmm_prep = prep
+    if eng._fused_prep is current:
+        eng._fused_prep = prep
+    eng._splits = tables
     return eng

@@ -1,5 +1,6 @@
 """Fused SpMM -> eMA ``out = ema(m_a, m_p @ A, IA, IP)``: the CUDA
-kernel's wrapper, its plain version, and the card's shared-memory fit model.
+kernels' wrappers, their plain versions, and the card's shared-memory fit
+models.
 
 The kernel (``csrc/fused_spmm_ema.cu``) keeps the ``(C(k,t_p), TV)`` slice
 of the neighbor sums ``y`` of one destination tile in shared memory and
@@ -7,8 +8,14 @@ never writes ``y`` to device memory. :func:`fused_fits_smem` is the model
 the engine admits plan nodes by, in place of the TPU's VMEM budget
 (``fused_fits_vmem`` in the JAX package).
 
-On CPU tensors :func:`fused_spmm_ema` runs :func:`fused_spmm_ema_plain`;
-on CUDA tensors it launches the kernel or raises.
+:func:`fused_spmm_ema_shared` is the group form: several consumers of ONE
+passive child from one launch of ``csrc/fused_spmm_ema_shared.cu``, whose
+SpMM leg runs once into shared ``y`` and whose consumers each apply their
+split combination to it. :func:`fused_group_fits_smem` is its fit model
+(``fused_group_fits_vmem`` in the JAX package).
+
+On CPU tensors the wrappers run their plain versions; on CUDA tensors they
+launch their kernels or raise.
 """
 
 from __future__ import annotations
@@ -23,14 +30,21 @@ from repro_torch.kernels.ema.ops import ema_plain
 from repro_torch.kernels.spmm.ops import BsrPrep, _check_operands, spmm_acc
 
 __all__ = ["fused_spmm_ema", "fused_spmm_ema_plain", "fused_fits_smem",
-           "fused_smem_bytes", "SMEM_LIMIT"]
+           "fused_smem_bytes", "fused_spmm_ema_shared",
+           "fused_spmm_ema_shared_plain", "fused_group_fits_smem",
+           "fused_group_smem_bytes", "MAX_GROUP", "SMEM_LIMIT"]
 
 # the layout of csrc/bsr_tile.cuh: TV destination columns per CUDA block,
 # one TILE x TV block slice and one STAGE x TILE table slice staged beside
 # y[c_p][TV]; every buffer in the accumulator dtype
 TILE, TV, STAGE = 128, 32, 32
+# warps per CUDA block: the group kernel reduces a row's split partials
+# across them in a WARPS x TV shared buffer
+WARPS = 8
 # dynamic shared memory one block may have on the H100 (227 KB)
 SMEM_LIMIT = 232_448
+# consumers one shared-passive launch takes (MAX_GROUP in the kernel)
+MAX_GROUP = 16
 
 
 def fused_smem_bytes(c_p: int, dtype=torch.float32) -> int:
@@ -43,6 +57,22 @@ def fused_fits_smem(c_p: int, dtype=torch.float32) -> bool:
     """Whether a plan node whose passive child has ``c_p`` color sets fits
     one CUDA block (f32 or bf16 storage: c_p <= 1,560)."""
     return fused_smem_bytes(c_p, dtype) <= SMEM_LIMIT
+
+
+def fused_group_smem_bytes(c_p: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one shared-passive group launch's CUDA
+    block: ``y[c_p, TV]`` paid once for every consumer, beside the staging
+    buffers of :func:`fused_smem_bytes` and the split-reduction buffer."""
+    return fused_smem_bytes(c_p, dtype) \
+        + WARPS * TV * accum_dtype(dtype).itemsize
+
+
+def fused_group_fits_smem(n_consumers: int, c_p: int,
+                          dtype=torch.float32) -> bool:
+    """Whether a group of ``n_consumers`` consumers of one passive child
+    with ``c_p`` color sets runs as one launch of the group kernel."""
+    return 1 <= n_consumers <= MAX_GROUP \
+        and fused_group_smem_bytes(c_p, dtype) <= SMEM_LIMIT
 
 
 def fused_spmm_ema_plain(m_a: torch.Tensor, m_p: torch.Tensor,
@@ -98,3 +128,70 @@ def fused_spmm_ema(m_a: torch.Tensor, m_p: torch.Tensor, ia: torch.Tensor,
 
 
 fused_spmm_ema.launches = 0
+
+
+def fused_spmm_ema_shared_plain(m_as, m_p: torch.Tensor, ias, ips,
+                                prep: BsrPrep) -> tuple:
+    """The plain version of the group kernel: ONE plain SpMM kept in the
+    accumulator dtype, then one plain eMA per consumer."""
+    y = spmm_acc(m_p.reshape(-1, m_p.shape[-1]), prep).reshape(m_p.shape)
+    return tuple(ema_plain(m_a, y, ia, ip)
+                 for m_a, ia, ip in zip(m_as, ias, ips))
+
+
+def fused_spmm_ema_shared(m_as, m_p: torch.Tensor, ias, ips,
+                          prep: BsrPrep) -> tuple:
+    """Per-consumer ``ema(m_a_i, m_p @ A, ia_i, ip_i)`` tuple for a group of
+    consumers sharing the passive table ``m_p`` (tables ``(..., C, N)``
+    with one shared leading batch dimension at most): the plain version on
+    CPU tensors, ONE launch of the group kernel on CUDA tensors. Raises for
+    more than :data:`MAX_GROUP` consumers."""
+    m_as, ias, ips = tuple(m_as), tuple(ias), tuple(ips)
+    if not (len(m_as) == len(ias) == len(ips)) or not m_as:
+        raise ValueError("a group needs one (m_a, ia, ip) per consumer")
+    if m_p.device.type == "cpu":
+        return fused_spmm_ema_shared_plain(m_as, m_p, ias, ips, prep)
+    if len(m_as) > MAX_GROUP:
+        raise ValueError(f"{len(m_as)} consumers: the group kernel takes at "
+                         f"most {MAX_GROUP}")
+    code = _check_operands("fused_spmm_ema_shared", prep, m_p, *m_as)
+    if m_p.dim() > 3 or any(m.shape[:-2] != m_p.shape[:-2] for m in m_as):
+        raise ValueError("group tables disagree in their batch dimension")
+    for ia, ip in zip(ias, ips):
+        for t in (ia, ip):
+            if t.device != m_p.device or not t.is_contiguous() \
+                    or t.dtype != torch.int32 or t.shape != ia.shape:
+                raise ValueError("split tables must be contiguous int32 "
+                                 "(S, L) pairs on the tables' device")
+    c_p = m_p.shape[-2]
+    if not fused_group_fits_smem(len(m_as), c_p, m_p.dtype):
+        raise ValueError(f"c_p={c_p} needs "
+                         f"{fused_group_smem_bytes(c_p, m_p.dtype)} bytes of "
+                         f"shared memory, over {SMEM_LIMIT}")
+    n = prep.n
+    batch = m_p.shape[0] if m_p.dim() == 3 else 1
+    outs = tuple(torch.empty(m.shape[:-2] + (ia.shape[0], n), dtype=m.dtype,
+                             device=m.device) for m, ia in zip(m_as, ias))
+    if batch == 0 or n == 0:
+        return outs
+    # one int64 row per consumer: m_a, IA, IP, out, c_a, S, L, 0 (the
+    # kernel's GroupMember); kept alive until the launch is enqueued
+    desc = torch.tensor([[m.data_ptr(), ia.data_ptr(), ip.data_ptr(),
+                          o.data_ptr(), m.shape[-2], ia.shape[0],
+                          ia.shape[1], 0]
+                         for m, ia, ip, o in zip(m_as, ias, ips, outs)],
+                        dtype=torch.int64).to(m_p.device)
+    fn = _build.kernel("rt_fused_spmm_ema_shared", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(m_p.device).cuda_stream
+    _build.check("fused_spmm_ema_shared", fn(
+        code, m_p.data_ptr(), c_p, n, batch, prep.blocks.data_ptr(),
+        prep.src_tile.data_ptr(), prep.tile_ptr.data_ptr(), prep.n_tiles,
+        desc.data_ptr(), len(m_as), stream))
+    fused_spmm_ema_shared.launches += 1
+    return outs
+
+
+fused_spmm_ema_shared.launches = 0

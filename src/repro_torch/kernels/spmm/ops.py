@@ -1,14 +1,22 @@
-"""BSR SpMM ``Y = M @ A``: the CUDA kernel's wrapper and its plain version.
+"""SpMM ``Y = M @ A``: the CUDA kernels' wrappers and their plain versions,
+over two operands.
 
-``prepare(graph)`` lifts the adjacency into the destination-sorted stream of
-dense 128x128 {0,1} blocks (``Graph.bsr``) on a device, plus the
+``prepare(graph, "bsr")`` lifts the adjacency into the destination-sorted
+stream of dense 128x128 {0,1} blocks (``Graph.bsr``) on a device, plus the
 per-destination-tile run pointer ``tile_ptr`` the CUDA kernels walk.
-``spmm(m, prep)`` applies ``Y = M @ A`` to a ``(..., C, N)`` table with the
-leading (batch) dimensions folded into rows — one launch for a whole
-coloring batch, as in the JAX package's ``kernels/spmm/ops.py``.
+``prepare(graph, "gather")`` puts the destination-sorted edge stream
+(``Graph.gather_layout``) there instead: no blocks, so it fits graphs whose
+dense blocks would not (a social graph's edges scatter over millions of
+tile pairs). ``spmm(m, prep)`` applies ``Y = M @ A`` to a ``(..., C, N)``
+table with the leading (batch) dimensions folded into rows — one launch
+for a whole coloring batch, as in the JAX package's ``kernels/spmm/ops.py``
+— and dispatches on the prep's kind.
 
-On a CPU tensor :func:`spmm` runs :func:`spmm_plain`; on a CUDA tensor it
-launches ``csrc/spmm_bsr.cu`` or raises.
+On a CPU tensor :func:`spmm` runs the plain version (:func:`spmm_plain`,
+:func:`spmm_gather_plain`); on a CUDA tensor it launches
+``csrc/spmm_bsr.cu`` or ``csrc/spmm_gather.cu``, or raises.
+``spmm.launches`` counts BSR launches, ``spmm_gather.launches`` gather
+launches.
 """
 
 from __future__ import annotations
@@ -23,7 +31,12 @@ from repro_torch.device import accum_dtype, card_dtype_code, resolve_device
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels import _build
 
-__all__ = ["BsrPrep", "prepare", "from_arrays", "spmm", "spmm_plain"]
+__all__ = ["BsrPrep", "GatherPrep", "METHODS", "prepare", "from_arrays",
+           "spmm", "spmm_plain", "spmm_gather", "spmm_gather_plain"]
+
+# operand kinds of prepare(); the JAX package's "pallas_bsr" and
+# "pallas_gather" backends
+METHODS = ("bsr", "gather")
 
 # elements of the plain version's gathered (rows, blocks, tile) operand per
 # chunk: bounds its working memory at full graph size
@@ -59,6 +72,28 @@ class BsrPrep:
         return self.blocks.dtype
 
 
+@dataclasses.dataclass
+class GatherPrep:
+    """The destination-sorted edge stream on one device: destination v
+    sums the table columns ``src[row_ptr[v]:row_ptr[v+1]]``; destination
+    tile t owns edges ``tile_ptr[t]:tile_ptr[t+1]``."""
+
+    n: int
+    src: torch.Tensor       # (m,) int32
+    row_ptr: torch.Tensor   # (n + 1,) int64
+    tile_ptr: torch.Tensor  # (n_tiles + 1,) int64
+    tile: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.src, self.row_ptr, self.tile_ptr))
+
+
 def from_arrays(n: int, blocks, src_tile, dst_tile, *,
                 dtype=torch.float32, device=None) -> BsrPrep:
     """A prep from the block stream as arrays (numpy or torch); builds the
@@ -82,12 +117,24 @@ def from_arrays(n: int, blocks, src_tile, dst_tile, *,
         tile=tile, n_tiles=n_tiles)
 
 
-def prepare(g: Graph, *, dtype=torch.float32, device=None,
-            tile: int = 128) -> BsrPrep:
-    """The BSR operand of ``g`` in storage dtype ``dtype`` on ``device``
-    (``None`` is CUDA). The blocks are densified where they live, from the
-    edges' slots, so the host never holds the dense stream."""
+def prepare(g: Graph, method: str = "bsr", *, dtype=torch.float32,
+            device=None, tile: int = 128) -> BsrPrep | GatherPrep:
+    """The SpMM operand of ``g`` on ``device`` (``None`` is CUDA).
+
+    ``"bsr"``: the dense blocks in storage dtype ``dtype``, densified where
+    they live from the edges' slots, so the host never holds the dense
+    stream. ``"gather"``: the edge stream and its run pointers (it holds no
+    values, so ``dtype`` does not enter)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown SpMM operand {method!r}; "
+                         f"choose from {METHODS}")
     device = resolve_device(device)
+    if method == "gather":
+        lay = g.gather_layout(tile)
+        return GatherPrep(
+            n=g.n, src=torch.as_tensor(lay.src, device=device),
+            row_ptr=torch.as_tensor(lay.row_ptr, device=device),
+            tile_ptr=torch.as_tensor(lay.tile_ptr, device=device), tile=tile)
     lay = g.padded(tile).bsr_layout(tile)
     blocks = torch.zeros((lay.n_blocks, tile, tile), dtype=dtype,
                          device=device)
@@ -147,9 +194,11 @@ def _check_operands(name: str, prep: BsrPrep, *tables: torch.Tensor) -> int:
     return card_dtype_code(prep.dtype)
 
 
-def spmm(m: torch.Tensor, prep: BsrPrep) -> torch.Tensor:
+def spmm(m: torch.Tensor, prep: BsrPrep | GatherPrep) -> torch.Tensor:
     """``Y = M @ A`` for a ``(..., C, N)`` table: the plain version on a
-    CPU tensor, one launch of the CUDA kernel on a CUDA tensor."""
+    CPU tensor, one launch of the prep's CUDA kernel on a CUDA tensor."""
+    if isinstance(prep, GatherPrep):
+        return spmm_gather(m, prep)
     if m.device.type == "cpu":
         return spmm_plain(m, prep)
     code = _check_operands("spmm", prep, m)
@@ -171,3 +220,64 @@ def spmm(m: torch.Tensor, prep: BsrPrep) -> torch.Tensor:
 
 
 spmm.launches = 0
+
+
+def spmm_gather_plain(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
+    """The plain PyTorch version of the gather kernel: ``(..., C, N) @ A``
+    in the storage dtype, accumulated in the accumulator dtype over runs
+    of whole destination tiles, each run's source columns gathered and
+    summed into their destinations. A run is cut at a tile boundary once it
+    holds enough edges, so the gathered ``(rows, edges)`` block stays
+    bounded at full graph size."""
+    flat = m.reshape(-1, m.shape[-1])
+    rows, n = flat.shape
+    out = torch.zeros((rows, n), dtype=accum_dtype(m.dtype), device=m.device)
+    if rows and prep.src.numel():
+        src = prep.src.long()
+        dst = torch.repeat_interleave(
+            torch.arange(n, device=m.device), prep.row_ptr.diff())
+        tile_ptr = prep.tile_ptr.cpu().numpy()
+        step = max(1, _PLAIN_CHUNK_ELEMS // rows)
+        cuts = [0]
+        for t in range(1, len(tile_ptr)):
+            if tile_ptr[t] - tile_ptr[cuts[-1]] >= step \
+                    or t == len(tile_ptr) - 1:
+                cuts.append(t)
+        for t0, t1 in zip(cuts[:-1], cuts[1:]):
+            e0, e1 = int(tile_ptr[t0]), int(tile_ptr[t1])
+            if e1 > e0:
+                out.index_add_(1, dst[e0:e1], flat[:, src[e0:e1]].to(out.dtype))
+    return out.to(m.dtype).reshape(m.shape)
+
+
+def spmm_gather(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
+    """``Y = M @ A`` over the edge stream for a ``(..., C, N)`` table: the
+    plain version on a CPU tensor, one launch of ``csrc/spmm_gather.cu`` on
+    a CUDA tensor."""
+    if m.device.type == "cpu":
+        return spmm_gather_plain(m, prep)
+    if m.device != prep.device:
+        raise ValueError(f"spmm_gather: table on {m.device}, operand on "
+                         f"{prep.device}")
+    if not m.is_contiguous():
+        raise ValueError("spmm_gather: tables must be contiguous")
+    if m.shape[-1] != prep.n:
+        raise ValueError(f"spmm_gather: table has {m.shape[-1]} vertices, "
+                         f"the graph {prep.n}")
+    code = card_dtype_code(m.dtype)
+    rows = m.numel() // max(1, m.shape[-1])
+    out = torch.empty_like(m)
+    if rows == 0 or prep.n == 0:
+        return out
+    fn = _build.kernel("rt_spmm_gather", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    _build.check("spmm_gather", fn(
+        code, m.data_ptr(), rows, prep.n, prep.src.data_ptr(),
+        prep.row_ptr.data_ptr(), out.data_ptr(), stream))
+    spmm_gather.launches += 1
+    return out
+
+
+spmm_gather.launches = 0

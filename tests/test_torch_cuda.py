@@ -8,7 +8,9 @@ exactly (integer-valued tables), bf16 within ``1e-2`` relative; the wrappers
 must raise on what the kernels do not take, and count only real launches.
 """
 
+import importlib.util
 from math import comb
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ import torch
 from repro_torch.core.colorsets import split_tables
 from repro_torch.core.engines import CountingEngine
 from repro_torch.graph.coloring import batch_colorings
-from repro_torch.graph.generators import erdos_renyi, grid_2d
+from repro_torch.core.templates import TemplateSpec
+from repro_torch.graph.generators import erdos_renyi, grid_2d, rmat, star
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.ema import ops as ema_ops
 from repro_torch.kernels.fused import ops as fused_ops
@@ -30,6 +33,15 @@ GRAPHS = {
     "empty": lambda: Graph.from_edges(200, np.zeros((0, 2), np.int64)),
 }
 TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+
+
+def census(k):
+    """Every free tree on k vertices, from chip_smoke.py's enumerator."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return [TemplateSpec(edges=e, root=r) for e, r in mod.census_trees(k)]
 
 
 @pytest.fixture
@@ -148,3 +160,133 @@ def test_engine_on_card_matches_cpu(card, tname, dtype):
     _close(r_card, r_cpu, dtype)
     assert on_card.estimate(4, seed=1)["samples"] \
         == on_cpu.estimate(4, seed=1)["samples"]
+
+
+def _group(k, cons, b, n, dtype, device, seed):
+    """Consumers ``cons`` = [(t, t_a), ...] of one passive child with
+    ``C(k, t - t_a)`` color sets on ``n`` vertices, as (m_as, m_p, ias,
+    ips)."""
+    t_p = cons[0][0] - cons[0][1]
+    m_p = _rand((b, comb(k, t_p), n), dtype, device, seed)
+    m_as, ias, ips = [], [], []
+    for i, (t, ta) in enumerate(cons):
+        ia, ip = _splits(k, t, ta, device)
+        ias.append(ia)
+        ips.append(ip)
+        m_as.append(_rand((b, comb(k, ta), n), dtype, device, seed + i + 1))
+    return m_as, m_p, ias, ips
+
+
+# (k, consumers): the reference suite's two-consumer group (different
+# c_a, S, L per consumer); census roots (S = 1, L = 252, split across the
+# warps); a ragged S = 3 root pair; four consumers of S >= 8 rows
+GROUPS = {
+    "two_consumer": (5, [(5, 3), (4, 2)]),
+    "census_roots": (10, [(10, 5)] * 3),
+    "ragged_s": (6, [(5, 4), (5, 4)]),
+    "wide_s": (12, [(7, 6), (7, 6), (7, 6), (7, 6)]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gname", sorted(GRAPHS))
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("b", [1, 3])
+def test_shared_group_kernel_matches_plain(card, dtype, gname, group, b):
+    g = GRAPHS[gname]()
+    prep = spmm_ops.prepare(g, dtype=dtype, device=card)
+    k, cons = GROUPS[group]
+    m_as, m_p, ias, ips = _group(k, cons, b, g.n, dtype, card, b)
+    before = fused_ops.fused_spmm_ema_shared.launches
+    got = fused_ops.fused_spmm_ema_shared(m_as, m_p, ias, ips, prep)
+    assert fused_ops.fused_spmm_ema_shared.launches == before + 1
+    want = fused_ops.fused_spmm_ema_shared_plain(m_as, m_p, ias, ips, prep)
+    assert len(got) == len(cons)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, dtype)
+
+
+def test_shared_group_wrapper_raises(card):
+    g = GRAPHS["ragged"]()
+    prep = spmm_ops.prepare(g, device=card)
+    m_as, m_p, ias, ips = _group(5, [(5, 3)] * 17, 1, g.n, torch.float32,
+                                 card, 0)
+    with pytest.raises(ValueError, match="at most 16"):
+        fused_ops.fused_spmm_ema_shared(m_as, m_p, ias, ips, prep)
+    with pytest.raises(TypeError):                          # mixed dtypes
+        fused_ops.fused_spmm_ema_shared(
+            [m_as[0].bfloat16()], m_p, ias[:1], ips[:1], prep)
+    with pytest.raises(ValueError, match="int32"):
+        fused_ops.fused_spmm_ema_shared(
+            m_as[:1], m_p, [ias[0].long()], [ips[0].long()], prep)
+    wide = torch.zeros((1, 1600, g.n), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_ops.fused_spmm_ema_shared(m_as[:1], wide, ias[:1], ips[:1],
+                                        prep)
+
+
+GATHER_GRAPHS = dict(GRAPHS, rmat=lambda: rmat(10, 8, seed=3),
+                     hub=lambda: star(3000))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gname", sorted(GATHER_GRAPHS))
+@pytest.mark.parametrize("rows", [1, 70])
+@pytest.mark.parametrize("b", [1, 3])
+def test_gather_kernel_matches_plain(card, dtype, gname, rows, b):
+    g = GATHER_GRAPHS[gname]()
+    prep = spmm_ops.prepare(g, "gather", device=card)
+    m = _rand((b, rows, g.n), dtype, card, rows + b)
+    before = (spmm_ops.spmm_gather.launches, spmm_ops.spmm.launches)
+    got = spmm_ops.spmm(m, prep)
+    assert (spmm_ops.spmm_gather.launches, spmm_ops.spmm.launches) \
+        == (before[0] + 1, before[1])
+    _close(got, spmm_ops.spmm_gather_plain(m, prep), dtype)
+    bsr = spmm_ops.prepare(g, dtype=dtype, device=card)
+    _close(got, spmm_ops.spmm(m, bsr), dtype)
+
+
+def test_gather_wrapper_raises(card):
+    g = GRAPHS["ragged"]()
+    prep = spmm_ops.prepare(g, "gather", device=card)
+    m = _rand((2, 5, g.n), torch.float32, card, 0)
+    with pytest.raises(TypeError):                         # f16 storage
+        spmm_ops.spmm(m.half(), prep)
+    with pytest.raises(ValueError):                        # not contiguous
+        spmm_ops.spmm(m.transpose(0, 1), prep)
+    with pytest.raises(ValueError):                        # wrong device
+        spmm_ops.spmm(m, spmm_ops.prepare(g, "gather", device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bundle_engine_on_card_matches_cpu(card, dtype):
+    g = grid_2d(30, 30)
+    bundle = census(6)
+    cols = batch_colorings(2, range(4), g.n, 6, device="cpu")
+    on_card = CountingEngine(g, bundle, plan="dedup", device=card,
+                             dtype=dtype)
+    on_cpu = CountingEngine(g, bundle, plan="dedup", device="cpu",
+                            dtype=dtype)
+    assert on_card.schedule.fused_groups
+    before = fused_ops.fused_spmm_ema_shared.launches
+    t_card, r_card = on_card.count_colorful_batch(cols)
+    assert fused_ops.fused_spmm_ema_shared.launches > before
+    t_cpu, r_cpu = on_cpu.count_colorful_batch(cols)
+    _close(t_card, t_cpu, dtype)
+    for a, b in zip(r_card, r_cpu):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_engine_on_card_matches_cpu(card, dtype):
+    g = rmat(10, 8, seed=1)
+    kw = dict(plan="optimized", spmm_method="gather", fuse_spmm_ema=False,
+              dtype=dtype)
+    on_card = CountingEngine(g, "u7", device=card, **kw)
+    on_cpu = CountingEngine(g, "u7", device="cpu", **kw)
+    assert on_card._fused_prep is None
+    cols = batch_colorings(3, range(5), g.n, 7, device="cpu")
+    t_card, r_card = on_card.count_colorful_batch(cols)
+    t_cpu, r_cpu = on_cpu.count_colorful_batch(cols)
+    _close(t_card, t_cpu, dtype)
+    _close(r_card, r_cpu, dtype)

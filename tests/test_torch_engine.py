@@ -162,7 +162,11 @@ def test_unported_options_raise(kw, match):
 
 def test_multi_template_and_chunking_raise():
     g = generators.grid_2d(16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # bundles are ported: they raise only where the reference does, on
+    # mixed template sizes and on the plain (un-deduplicated) plan
+    with pytest.raises(ValueError, match="equal-k"):
+        CountingEngine(g, ["u5", "u7"], plan="dedup", device="cpu")
+    with pytest.raises(ValueError, match="plain"):
         CountingEngine(g, ["u5", "u5"], device="cpu")
     # u10's unfused plain plan at half its batch-1 peak makes the memory
     # model chunk a node's passive axis

@@ -80,6 +80,18 @@ ENTRY_POINTS = {
     "batch_colorings": lambda **kw: batch_colorings(0, range(2), 5, 3, **kw),
     "iteration_key": lambda **kw: iteration_key(0, 1, **kw),
     "api.count": lambda **kw: api.count(_TINY, "u3", max_iters=1, **kw),
+    "api.count_many": lambda **kw: api.count_many(
+        _TINY, ["u3", "path4", "star4"], max_iters=1, **kw),
+    "api.compile_query": lambda **kw: api.compile_query(
+        _TINY, api.CountQuery(templates=("path4", "star4"), max_iters=1),
+        **kw),
+    "api.motif_features": lambda **kw: api.motif_features(
+        _TINY, ["u3", "star4"], n_iters=1, **kw),
+    "prepare_gather": lambda **kw: spmm_ops.prepare(_TINY, "gather", **kw),
+    "gather_engine": lambda **kw: CountingEngine(
+        _TINY, "u5", spmm_method="gather", **kw),
+    "bundle_engine": lambda **kw: CountingEngine(
+        _TINY, ["path4", "star4"], plan="dedup", **kw),
 }
 
 
@@ -90,6 +102,17 @@ def test_entry_point_defaults_to_cuda_and_runs_when_asked_for_cpu(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name]()
     ENTRY_POINTS[name](device="cpu")
+
+
+def test_new_modules_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/motif_features.py",
+            "src/repro_torch/api.py", "chip_smoke.py"} <= names
+
+
+def test_unknown_spmm_operand_raises():
+    with pytest.raises(ValueError, match="gather"):
+        spmm_ops.prepare(_TINY, "ell", device="cpu")
 
 
 def test_card_fit_model_admits_every_u12_sole_consumer():

@@ -68,7 +68,7 @@ def test_split_tables_and_prep_match_reference_engine(tname):
             assert got.numpy().astype(want.dtype).tobytes() == want.tobytes()
     for name in ("blocks", "src_tile", "dst_tile"):
         want = np.asarray(ref._spmm_prep.arrays[name])
-        got = getattr(eng._bsr, name).numpy()
+        got = getattr(eng._spmm_prep, name).numpy()
         assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
 
 
@@ -100,3 +100,43 @@ def test_engine_from_state_rejects_mismatched_operand():
             bsr={"blocks": other.blocks, "src_tile": other.src_tile,
                  "dst_tile": other.dst_tile},
             splits={}, device="cpu")
+
+
+# a groupable bundle: one unrooted fork rooted two ways (the reference
+# suite's _shared_passive_bundle)
+BUNDLE = [((0, 1), (1, 2), (0, 3), (0, 4)), ((0, 1), (1, 2), (2, 3), (1, 4))]
+
+
+def test_bundle_engine_from_reference_state_gives_reference_totals():
+    g_ref = GRAPHS["er_ragged"][1]()
+    ref = RefEngine(g_ref, BUNDLE, spmm_method="pallas_bsr",
+                    use_pallas_ema=True, fuse_spmm_ema=True, plan="dedup")
+    assert ref.schedule.fused_groups
+    eng = interop.engine_from_state(
+        BUNDLE, n=g_ref.n, indptr=g_ref.indptr, indices=g_ref.indices,
+        bsr={k: np.asarray(ref._fused_prep.arrays[k])
+             for k in ("blocks", "src_tile", "dst_tile")},
+        splits={i: tuple(np.asarray(a) for a in pair)
+                for i, pair in ref._splits.items()},
+        roots=ref.roots, device="cpu", plan="dedup")
+    assert eng.fused and eng.schedule.fused_groups
+    cols = np.stack([coloring_numpy(6, i, g_ref.n, 5) for i in range(3)])
+    got, _ = eng.count_colorful_batch(torch.as_tensor(cols))
+    want, _ = ref.count_colorful_batch(jnp.asarray(cols))
+    assert got.shape == (3, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_bundle_engine_from_state_rejects_other_roots():
+    g_ref = GRAPHS["grid"][1]()
+    ref = RefEngine(g_ref, BUNDLE, spmm_method="pallas_bsr",
+                    fuse_spmm_ema=True, plan="dedup")
+    with pytest.raises(ValueError, match="roots"):
+        interop.engine_from_state(
+            BUNDLE, n=g_ref.n, indptr=g_ref.indptr,
+            indices=g_ref.indices,
+            bsr={k: np.asarray(ref._fused_prep.arrays[k])
+                 for k in ("blocks", "src_tile", "dst_tile")},
+            splits={i: tuple(np.asarray(a) for a in pair)
+                    for i, pair in ref._splits.items()},
+            roots=ref.roots[::-1], device="cpu", plan="dedup")
