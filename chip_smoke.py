@@ -24,7 +24,11 @@ In order it prints:
 3. each CUDA kernel against its plain PyTorch version on the card, at its
    path's shapes, f32 and bf16 storage: error against the stated
    tolerance, kernel and plain times, the kernel's bound, and for the two
-   SpMMs the time of ``torch.sparse.mm`` on the CSR adjacency;
+   SpMMs the time of ``torch.sparse.mm`` on the CSR adjacency, alone and
+   with the transposes in and out of its ``(n, rows)`` layout inside the
+   call. The BSR SpMM also runs at path A's largest unfused passive table,
+   and the gather operand's bytes, scratch bytes and hub segments are
+   printed;
 4. whole-path parity, the card's engine against the CPU engine (plain
    versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
    ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; u12
@@ -32,7 +36,8 @@ In order it prints:
 5. the three full-size runs, each with its kernels' launches (all must be
    > 0), peak device memory and seconds per coloring;
 6. where the time goes: one batch of each full-size path under
-   ``torch.profiler``, device time by kernel and the device's idle share;
+   ``torch.profiler``, device time and launches by kernel, the device's
+   idle share, the host's CUDA calls and the allocator's retries;
 7. one JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -182,12 +187,7 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     results = {}
-    # CSR adjacency for the torch.sparse.mm yardstick (A is symmetric, so
-    # (M @ A)^T = A @ M^T)
-    csr = torch.sparse_csr_tensor(
-        torch.as_tensor(g.indptr, device=dev),
-        torch.as_tensor(g.indices.astype("int64"), device=dev),
-        torch.ones(g.m, device=dev), size=(n, n), check_invariants=True)
+    csr = _csr(g, dev)
 
     def rand(shape, dt):
         return torch.randint(0, 4, shape, generator=gen, device=dev).to(dt)
@@ -201,8 +201,9 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
         item = dt.itemsize
         print(f"[kernel] BSR operand ({dt}): n={n} m={g.m} "
               f"blocks={prep.n_blocks} tiles={prep.n_tiles} "
-              f"bytes={prep.blocks.numel() * item} "
-              f"nnz_per_block={g.m / prep.n_blocks:.1f}", flush=True)
+              f"bytes={prep.blocks.numel() * item} nonzero index bytes="
+              f"{prep.index_bytes} nnz_per_block={g.m / prep.n_blocks:.1f}",
+              flush=True)
         # the least adjacency bytes the product needs: its nonzeros as
         # int32 CSR, not the dense block stream the kernels are given
         adj_bytes = 4 * (n + 1 + g.m)
@@ -222,6 +223,8 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
                 bytes=2 * leaf.numel() * item + adj_bytes,
                 flops=2 * g.m * rows,
                 library=(lambda: torch.sparse.mm(csr, leaf_t))
+                if dt == torch.float32 else None,
+                library_t=_library_transposed(csr, leaf)
                 if dt == torch.float32 else None))
             # --- eMA at u12 node 6: Ca=924, Cp=12, S=792, L=7
             ia6, ip6 = splits(7, 6)
@@ -262,7 +265,9 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
 
 def _measure(case: dict, tol: float, reps: int) -> dict:
     """Run the kernel and its plain version once each, compare, then time
-    them (the kernel over ``reps`` runs, the plain version over one)."""
+    them (the kernel over ``reps`` runs, the plain version over one), each
+    after one untimed call, so its outputs and scratch come from the
+    caching allocator as on the path and not from ``cudaMalloc``."""
     import torch
     got = case["kernel"]()
     want = case["plain"]()
@@ -270,24 +275,33 @@ def _measure(case: dict, tol: float, reps: int) -> dict:
     abs_err, rel_err = _errors(got, want)
     del got, want
     torch.cuda.empty_cache()
-    ms = _time_ms(case["kernel"], reps)
-    plain_ms = _time_ms(case["plain"], 1)
-    lib_ms = None
-    if case["library"]:
-        case["library"]()                  # first call sets up cuSPARSE
-        lib_ms = _time_ms(case["library"], reps)
+
+    def timed(fn, n):
+        fn()
+        return _time_ms(fn, n)
+
+    ms = timed(case["kernel"], reps)
+    plain_ms = timed(case["plain"], 1)
+    lib_ms = lib_t_ms = None
+    if case["library"]:                    # the warm call sets up cuSPARSE
+        lib_ms = timed(case["library"], reps)
+    if case.get("library_t"):
+        lib_t_ms = timed(case["library_t"], reps)
     bound_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
     bound_ops = case["flops"] / F32_FLOPS_PER_S * 1e3
     row = dict(max_abs_err=abs_err, max_rel_err=rel_err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms,
+               library_transposed_ms=lib_t_ms,
                bound_ms=max(bound_bytes, bound_ops),
                bound_by="bytes" if bound_bytes >= bound_ops else "operations")
     lib = f"{lib_ms:.3f}" if lib_ms is not None else "n/a"
+    lib_t = f" library_transposed_ms={lib_t_ms:.3f}" \
+        if lib_t_ms is not None else ""
     print(f"[kernel] {case['name']:<15} {case['shape']:<48} "
           f"max_rel_err={rel_err:.3e} (tol {tol:g}) "
           f"max_abs_err={abs_err:.3e} kernel_ms={ms:.3f} "
           f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.3f} "
-          f"({row['bound_by']}) library_ms={lib}", flush=True)
+          f"({row['bound_by']}) library_ms={lib}{lib_t}", flush=True)
     if not rel_err <= tol:
         raise AssertionError(f"{case['name']} disagrees with its plain "
                              f"version: {rel_err} > {tol}")
@@ -302,6 +316,16 @@ def _csr(g, dev):
         torch.as_tensor(g.indptr, device=dev),
         torch.as_tensor(g.indices.astype("int64"), device=dev),
         torch.ones(g.m, device=dev), size=(g.n, g.n), check_invariants=True)
+
+
+def _library_transposed(csr, m):
+    """``torch.sparse.mm`` on a colour-major table with the transposes in
+    and out inside the call: the kernels take and give ``(rows, n)``, the
+    library ``(n, rows)``."""
+    import torch
+    n = m.shape[-1]
+    return lambda: torch.sparse.mm(
+        csr, m.reshape(-1, n).t().contiguous().float()).t().contiguous()
 
 
 def phase_group_kernel(g, batch: int, n_cons: int) -> dict:
@@ -349,6 +373,39 @@ def phase_group_kernel(g, batch: int, n_cons: int) -> dict:
     return results
 
 
+def phase_bsr_census_kernel(g, batch: int, c_p: int) -> None:
+    """The BSR SpMM against its plain version at path A's most expensive
+    unfused SpMM: the passive table of ``c_p`` colour sets at path A's
+    batch, timed beside ``torch.sparse.mm``."""
+    import torch
+
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    dev = torch.device("cuda")
+    n = g.n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    csr = _csr(g, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        prep = spmm_ops.prepare(g, dtype=dt, device=dev)
+        tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+        m = torch.randint(0, 4, (batch, c_p, n), generator=gen,
+                          device=dev).to(dt)
+        f32 = dt == torch.float32
+        m_t = m.reshape(-1, n).t().contiguous() if f32 else None
+        case = dict(
+            name="spmm_bsr", shape=f"m=({batch},{c_p},{n}) census",
+            kernel=lambda: spmm_ops.spmm(m, prep),
+            plain=lambda: spmm_ops.spmm_plain(m, prep),
+            bytes=2 * m.numel() * dt.itemsize + 4 * (n + 1 + g.m),
+            flops=2 * g.m * batch * c_p,
+            library=(lambda: torch.sparse.mm(csr, m_t)) if f32 else None,
+            library_t=_library_transposed(csr, m) if f32 else None)
+        _measure(case, tol, 3)
+        del case, m, m_t, prep
+        torch.cuda.empty_cache()
+
+
 def phase_gather_kernel(g, batch: int) -> dict:
     """The gather SpMM against its plain version on ``rmat(20)`` at path
     B's shapes: its batch of leaf tables (12 rows a coloring) and of node
@@ -363,22 +420,29 @@ def phase_gather_kernel(g, batch: int) -> dict:
     gen.manual_seed(2)
     prep = spmm_ops.prepare(g, "gather", device=dev)
     csr = _csr(g, dev)
+    print(f"[kernel] gather operand: n={n} m={g.m} bytes={prep.nbytes} "
+          f"hub_degree={prep.hub_degree} hubs={prep.n_hubs} "
+          f"hub segments={prep.n_segments} max degree="
+          f"{int(g.degrees.max())} scratch bytes per call: f32 "
+          f"{prep.scratch_bytes(torch.float32)}, bf16 "
+          f"{prep.scratch_bytes(torch.bfloat16)}", flush=True)
     results = {}
     for dt, rows in ((torch.float32, 12), (torch.bfloat16, 12),
                      (torch.float32, 220)):
         tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
         m = torch.randint(0, 4, (batch, rows, n), generator=gen,
                           device=dev).to(dt)
-        m_t = m.reshape(-1, n).t().contiguous().float() \
-            if dt == torch.float32 else None
+        f32 = dt == torch.float32
+        m_t = m.reshape(-1, n).t().contiguous() if f32 else None
         case = dict(
             name="spmm_gather", shape=f"m=({batch},{rows},{n}) E={g.m}",
             kernel=lambda: spmm_ops.spmm(m, prep),
             plain=lambda: spmm_ops.spmm_gather_plain(m, prep),
-            bytes=2 * m.numel() * dt.itemsize + prep.nbytes,
+            # the adjacency as int32 CSR, as the BSR rows count it
+            bytes=2 * m.numel() * dt.itemsize + 4 * (n + 1 + g.m),
             flops=g.m * batch * rows,          # one add per edge and row
-            library=(lambda: torch.sparse.mm(csr, m_t))
-            if m_t is not None else None)
+            library=(lambda: torch.sparse.mm(csr, m_t)) if f32 else None,
+            library_t=_library_transposed(csr, m) if f32 else None)
         results[(dt, rows)] = _measure(case, tol, 3)
         del case, m, m_t
         torch.cuda.empty_cache()
@@ -523,11 +587,12 @@ def phase_full(g) -> dict:
     return launches
 
 
-def phase_census_full(g) -> tuple[dict, int, int]:
+def phase_census_full(g) -> tuple[dict, int, int, int]:
     """Path A: the k=10 census (106 trees) on grid_2d(1024, 1024), plan
     "dedup", 8 colorings, through ``compile_query(...).run()`` — the body
     of ``api.count_many`` — so the engine's groups and batch can be read.
-    Returns (launches, batch size, largest group)."""
+    Returns (launches, batch size, largest group, colour sets of the
+    largest passive table the SpMM kernel takes)."""
     import torch
 
     from repro_torch import api
@@ -560,6 +625,9 @@ def phase_census_full(g) -> tuple[dict, int, int]:
     est = [r.estimate for r in res]
     print(f"[full]   estimates: min={min(est)!r} max={max(est)!r} "
           f"zero={sum(e == 0 for e in est)}", flush=True)
+    unfused = unfused_spmm_rows(eng)
+    print(f"[full]   unfused SpMMs per batch by passive colour sets: "
+          f"{sorted(unfused.items())}", flush=True)
     # a tree embeds in the grid exactly when no vertex has degree > 4
     for spec, r in zip(specs, res):
         deg = max(sum(v in e for e in spec.edges) for v in range(spec.k))
@@ -572,7 +640,24 @@ def phase_census_full(g) -> tuple[dict, int, int]:
     if min(launches[k] for k in path) == 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    return launches, eng.batch_size, max(len(gr) for gr in groups)
+    return (launches, eng.batch_size, max(len(gr) for gr in groups),
+            max(unfused))
+
+
+def unfused_spmm_rows(eng) -> dict:
+    """How many of an engine's SpMMs per batch go through the SpMM kernel
+    (the passive children of nodes neither fused nor grouped, once each:
+    the executor's y-cache), by the passive table's colour sets."""
+    import collections
+    sch, nodes = eng.schedule, eng.plan.nodes
+    seen, out = set(), collections.Counter()
+    for idx, node in enumerate(nodes):
+        if node.is_leaf or idx in sch.fused_set or idx in sch.group_of \
+                or node.passive in seen:
+            continue
+        seen.add(node.passive)
+        out[math.comb(eng.k, nodes[node.passive].size)] += 1
+    return out
 
 
 def layout_sizes(g, tile: int = 128, chunk: int = 512) -> dict:
@@ -622,7 +707,9 @@ def phase_gather_full(g) -> tuple[dict, int]:
           f"count={est['count']!r} std={est['std']!r} batch="
           f"{eng.batch_size} s_per_coloring={secs / 8:.4f} (estimate "
           f"{secs:.3f} s, engine build {built:.3f} s) operand bytes="
-          f"{prep.nbytes} modeled peak={eng.peak_table_bytes} "
+          f"{prep.nbytes} + scratch {prep.scratch_bytes(eng.dtype)} "
+          f"(hubs={prep.n_hubs} hub segments={prep.n_segments}) "
+          f"modeled peak={eng.peak_table_bytes} "
           f"launches={launches} max_memory_allocated={peak} "
           f"({peak / GIB:.2f} GiB)", flush=True)
     if not (math.isfinite(est["count"]) and est["count"] > 0
@@ -636,25 +723,36 @@ def phase_gather_full(g) -> tuple[dict, int]:
 
 def _profile(label: str, fn) -> None:
     """Run ``fn`` under ``torch.profiler``: the host wall time, the device's
-    busy time (the union of kernel intervals) and idle share, and device
-    time by kernel, the largest first."""
+    busy time (the union of kernel intervals) and idle share, device time
+    and launches by kernel, the largest first, and where the host waits:
+    its CUDA runtime calls by time and the allocator's retries (a
+    ``cudaMalloc`` that failed, so every cached block was freed and the
+    device synced)."""
     import collections
 
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         _sync()
         wall_us = (time.perf_counter() - t0) * 1e6
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     by_name = collections.Counter()
+    launched = collections.Counter()
+    host = collections.Counter()
     spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
+            launched[e.name] += 1
             spans.append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cuda"):
+            host[e.name] += e.time_range.elapsed_us()
     busy, end = 0, None
     for a, b in sorted(spans):           # union of kernel intervals
         if end is None or a > end:
@@ -667,7 +765,12 @@ def _profile(label: str, fn) -> None:
           f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}",
           flush=True)
     for name, us in by_name.most_common(8):
-        print(f"[profile]   {us / 1e3:10.2f} ms  {name[:100]}", flush=True)
+        print(f"[profile]   {us / 1e3:10.2f} ms {launched[name]:6d}x  "
+              f"{name[:100]}", flush=True)
+    calls = ", ".join(f"{name} {us / 1e3:.1f} ms"
+                      for name, us in host.most_common(4))
+    print(f"[profile]   host CUDA calls: {calls}; allocator retries "
+          f"{retries}", flush=True)
 
 
 def phase_profile(g, g_rmat) -> None:
@@ -731,9 +834,11 @@ def main() -> int:
     _sync()
     by_path = {"u12_grid": phase_full(g)}
     _sync()
-    by_path["census10_grid"], batch_a, group_a = phase_census_full(g)
+    by_path["census10_grid"], batch_a, group_a, c_p = phase_census_full(g)
     _sync()
     group = phase_group_kernel(g, batch_a, group_a)
+    _sync()
+    phase_bsr_census_kernel(g, batch_a, c_p)
     _sync()
     t0 = time.perf_counter()
     g_rmat = rmat(20)
@@ -777,7 +882,8 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
-                     "library_ms": m["library_ms"]})
+                     "library_ms": m["library_ms"],
+                     "library_transposed_ms": m["library_transposed_ms"]})
         if rows[-1]["launches"] == 0:
             raise AssertionError(f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,7 @@
-// Shared pieces of the BSR kernels (spmm_bsr.cu, fused_spmm_ema.cu).
+// Shared pieces of the port's kernels: the tile constants and the storage
+// conversions, and the dense run walk of the fused kernels
+// (fused_spmm_ema.cu, fused_spmm_ema_shared.cu; spmm_bsr.cu walks only the
+// nonzeros, bsr_sparse_tile.cuh).
 //
 // The adjacency is the destination-sorted stream of dense TILE x TILE
 // {0,1} blocks of Graph.bsr(); tile_ptr[t]..tile_ptr[t+1] is destination

@@ -2,64 +2,65 @@
 //
 // Replaces the TPU kernel spmm_bsr_pallas (src/repro/kernels/spmm/
 // pallas_bsr.py, _kernel and spmm_bsr_pallas), which walked the
-// destination-sorted block stream on a sequential grid axis and kept the
-// partial sums in VMEM scratch between steps.
+// destination-sorted block stream on a sequential grid axis, multiplied
+// each dense 128x128 block on the MXU and kept the partial sums in VMEM
+// scratch between steps.
 //
-// Here one CUDA block owns (destination tile, TV-column slice, SPMM_ROWS
-// rows of M) and walks the tile's block run itself (bsr_tile.cuh), so the
-// sum needs no atomics and has a fixed order. Sums are f32 for f32 and
-// bf16 storage.
+// Here one CUDA block owns a whole destination tile and SP_ROWS rows of M
+// and walks the tile's block run itself, so the sum needs no atomics and
+// has a fixed order. It walks only each block's nonzeros
+// (bsr_sparse_tile.cuh): a road-like graph's block holds ~100 of its
+// 16,384 entries, and the dense product would be ~150x the useful adds on
+// CUDA cores. Sums are f32 for f32 and bf16 storage.
 //
-// What bounds it on the H100: the dense blocks. A block of a road-like
-// graph holds ~100 nonzeros of its 16,384 entries, so the block stream is
-// most of the bytes (2.55 GB at 1M vertices) and the dense products are
-// ~150x the useful multiply-adds, on CUDA cores. The design keeps the
-// arithmetic on shared memory (broadcast table reads, conflict-free block
-// reads) and reads each block once per column slice; skipping the zeros
-// is left to the gather kernel still to be ported.
-#include "bsr_tile.cuh"
+// What bounds it on the H100: device-memory bytes. Each source slice of M
+// is staged once per destination tile (a mesh tile's run has ~5 blocks:
+// the tile itself, +-1 and +-8), so M is read ~5 times, mostly from L2
+// (neighbouring tiles run together and share their slices), and Y written
+// once; the nonzero index adds 4 bytes a column and a byte an edge for
+// each row chunk.
+#include "bsr_sparse_tile.cuh"
 
 namespace {
 
-constexpr int SPMM_ROWS = 64;  // rows of M per CUDA block
-
 template <typename T>
-__global__ void __launch_bounds__(rt::THREADS)
+__global__ void __launch_bounds__(rt::SP_THREADS)
     spmm_bsr_kernel(const T* __restrict__ m, int rows, long long n,
-                    const T* __restrict__ blocks,
                     const int* __restrict__ src_tile,
-                    const int* __restrict__ tile_ptr, T* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* blk_s = smem;
-  float* m_s = blk_s + rt::TILE * rt::TV;
-  float* y = m_s + rt::STAGE * rt::TILE;
-  const int slices = rt::TILE / rt::TV;
-  const int tile = blockIdx.x / slices;
-  const int col0 = (blockIdx.x % slices) * rt::TV;
-  const int r0 = blockIdx.y * SPMM_ROWS;
-  const int nr = min(SPMM_ROWS, rows - r0);
-  rt::bsr_run_accumulate(m + (long long)r0 * n, n, nr, blocks, src_tile,
-                         tile_ptr[tile], tile_ptr[tile + 1], col0, y, blk_s,
-                         m_s);
-  const long long v0 = (long long)tile * rt::TILE + col0;
-  for (int i = threadIdx.x; i < nr * rt::TV; i += rt::THREADS) {
-    const long long v = v0 + i % rt::TV;
-    if (v < n)
-      out[(long long)(r0 + i / rt::TV) * n + v] = rt::from_f32<T>(y[i]);
-  }
+                    const int* __restrict__ tile_ptr,
+                    const int* __restrict__ col_ptr,
+                    const unsigned char* __restrict__ nz_src,
+                    T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x;
+  const int r0 = blockIdx.y * rt::SP_ROWS;
+  const int nr = min(rt::SP_ROWS, rows - r0);
+  float acc[rt::SP_ROWS_PER_THREAD];
+  rt::bsr_sparse_run_accumulate(m + (long long)r0 * n, n, nr, src_tile,
+                                col_ptr, nz_src, tile_ptr[tile],
+                                tile_ptr[tile + 1], reinterpret_cast<T*>(smem),
+                                acc);
+  const long long v = (long long)tile * rt::TILE + threadIdx.x % rt::TILE;
+  const int row0 = (threadIdx.x / rt::TILE) * rt::SP_ROWS_PER_THREAD;
+  if (v >= n) return;
+#pragma unroll
+  for (int k = 0; k < rt::SP_ROWS_PER_THREAD; ++k)
+    if (row0 + k < nr)
+      out[(long long)(r0 + row0 + k) * n + v] = rt::from_f32<T>(acc[k]);
 }
 
 template <typename T>
-int launch(const void* m, int rows, long long n, const void* blocks,
-           const int* src_tile, const int* tile_ptr, int n_tiles, void* out,
+int launch(const void* m, int rows, long long n, const int* src_tile,
+           const int* tile_ptr, const int* col_ptr,
+           const unsigned char* nz_src, int n_tiles, void* out,
            cudaStream_t stream) {
-  const dim3 grid(n_tiles * (rt::TILE / rt::TV),
-                  (rows + SPMM_ROWS - 1) / SPMM_ROWS);
-  const int smem =
-      (rt::WALK_SMEM_FLOATS + SPMM_ROWS * rt::TV) * (int)sizeof(float);
-  spmm_bsr_kernel<T><<<grid, rt::THREADS, smem, stream>>>(
-      static_cast<const T*>(m), rows, n, static_cast<const T*>(blocks),
-      src_tile, tile_ptr, static_cast<T*>(out));
+  const long long row_blocks = (rows + rt::SP_ROWS - 1) / rt::SP_ROWS;
+  if (row_blocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(n_tiles, (unsigned)row_blocks);
+  spmm_bsr_kernel<T>
+      <<<grid, rt::SP_THREADS, rt::sparse_smem_bytes<T>(), stream>>>(
+          static_cast<const T*>(m), rows, n, src_tile, tile_ptr, col_ptr,
+          nz_src, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -68,16 +69,16 @@ int launch(const void* m, int rows, long long n, const void* blocks,
 // dtype: 0 = f32, 1 = bf16 (storage; the sums are f32 either way).
 // Returns the cudaError_t of the launch.
 extern "C" int rt_spmm_bsr(int dtype, const void* m, int rows, long long n,
-                           const void* blocks, const int* src_tile,
-                           const int* tile_ptr, int n_tiles, void* out,
-                           void* stream) {
+                           const int* src_tile, const int* tile_ptr,
+                           const int* col_ptr, const unsigned char* nz_src,
+                           int n_tiles, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(m, rows, n, blocks, src_tile, tile_ptr, n_tiles, out,
-                         s);
+    return launch<float>(m, rows, n, src_tile, tile_ptr, col_ptr, nz_src,
+                         n_tiles, out, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(m, rows, n, blocks, src_tile, tile_ptr,
-                                 n_tiles, out, s);
+    return launch<__nv_bfloat16>(m, rows, n, src_tile, tile_ptr, col_ptr,
+                                 nz_src, n_tiles, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

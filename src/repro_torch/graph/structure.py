@@ -7,7 +7,8 @@ derived on demand:
 * ``gather``       — the destination-sorted edge stream with per-vertex and
                      per-destination-tile run pointers, for the gather SpMM.
 * ``bsr``          — 128x128 dense-ified adjacency tiles (block-sparse rows)
-                     for the BSR SpMM and fused SpMM->eMA kernels.
+                     for the fused SpMM->eMA kernels, and each block's
+                     nonzeros by destination column for the BSR SpMM.
 
 All formats represent the *reverse* traversal used by the DP: for an undirected
 graph, A is symmetric and Y[:, i] = sum_{j in N(i)} M[:, j].
@@ -31,7 +32,8 @@ from functools import cached_property
 
 import numpy as np
 
-__all__ = ["Graph", "BsrMatrix", "BsrLayout", "GatherLayout"]
+__all__ = ["Graph", "BsrMatrix", "BsrLayout", "GatherLayout",
+           "block_nonzero_index"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +73,30 @@ class BsrLayout:
     @property
     def n_blocks(self) -> int:
         return int(self.src_tile.shape[0])
+
+
+def block_nonzero_index(n_blocks: int, tile: int, edge_block, edge_src,
+                        edge_dst) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzeros of a block stream, block by block and in each block by
+    destination column, sources ascending: ``(col_ptr, nz_src)``. Column
+    ``c`` of block ``b`` sums the source rows ``nz_src[col_ptr[b, c]:
+    col_ptr[b, c + 1]]`` of its source tile; ``col_ptr`` is ``(n_blocks,
+    tile + 1)`` int32 of offsets into the whole stream (``col_ptr[b, tile]
+    == col_ptr[b + 1, 0]``), ``nz_src`` uint8 rows inside the tile."""
+    if tile > 256:
+        raise ValueError(f"a uint8 source offset holds tiles up to 256, "
+                         f"got {tile}")
+    edge_block = np.asarray(edge_block, np.int64)
+    edge_src = np.asarray(edge_src, np.int64)
+    col = edge_block * tile + np.asarray(edge_dst, np.int64)
+    if len(col) >= 1 << 31:
+        raise ValueError(f"{len(col)} nonzeros overflow the int32 column "
+                         f"pointer")
+    order = np.lexsort((edge_src, col))
+    flat = np.searchsorted(col[order], np.arange(n_blocks * tile + 1))
+    col_ptr = flat[np.arange(n_blocks)[:, None] * tile
+                   + np.arange(tile + 1)].astype(np.int32)
+    return col_ptr, edge_src[order].astype(np.uint8)
 
 
 @dataclasses.dataclass(frozen=True)

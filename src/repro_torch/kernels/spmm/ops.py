@@ -3,11 +3,17 @@ over two operands.
 
 ``prepare(graph, "bsr")`` lifts the adjacency into the destination-sorted
 stream of dense 128x128 {0,1} blocks (``Graph.bsr``) on a device, plus the
-per-destination-tile run pointer ``tile_ptr`` the CUDA kernels walk.
+per-destination-tile run pointer ``tile_ptr`` the CUDA kernels walk and
+each block's nonzeros by destination column (``col_ptr``, ``nz_src``:
+``structure.block_nonzero_index``). The BSR SpMM kernel walks only those
+nonzeros; the fused kernels still multiply the dense blocks.
 ``prepare(graph, "gather")`` puts the destination-sorted edge stream
-(``Graph.gather_layout``) there instead: no blocks, so it fits graphs whose
-dense blocks would not (a social graph's edges scatter over millions of
-tile pairs). ``spmm(m, prep)`` applies ``Y = M @ A`` to a ``(..., C, N)``
+(``Graph.gather_layout``) there instead, with its hubs' segments: no
+blocks, so it fits graphs whose dense blocks would not (a social graph's
+edges scatter over millions of tile pairs). The gather kernel reads the
+table through a vertex-major scratch of ``128 / itemsize`` rows, allocated
+per call (:meth:`GatherPrep.scratch_bytes`). ``spmm(m, prep)`` applies
+``Y = M @ A`` to a ``(..., C, N)``
 table with the leading (batch) dimensions folded into rows — one launch
 for a whole coloring batch, as in the JAX package's ``kernels/spmm/ops.py``
 — and dispatches on the prep's kind.
@@ -15,8 +21,9 @@ for a whole coloring batch, as in the JAX package's ``kernels/spmm/ops.py``
 On a CPU tensor :func:`spmm` runs the plain version (:func:`spmm_plain`,
 :func:`spmm_gather_plain`); on a CUDA tensor it launches
 ``csrc/spmm_bsr.cu`` or ``csrc/spmm_gather.cu``, or raises.
-``spmm.launches`` counts BSR launches, ``spmm_gather.launches`` gather
-launches.
+``spmm.launches`` counts BSR launches, ``spmm_gather.launches`` the
+gather wrapper's calls that reach the card (each launches a transpose, a
+gather and, with hubs, a hub pass per chunk of rows).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import accum_dtype, card_dtype_code, resolve_device
-from repro_torch.graph.structure import Graph
+from repro_torch.graph.structure import Graph, block_nonzero_index
 from repro_torch.kernels import _build
 
 __all__ = ["BsrPrep", "GatherPrep", "METHODS", "prepare", "from_arrays",
@@ -43,6 +50,13 @@ METHODS = ("bsr", "gather")
 _PLAIN_CHUNK_ELEMS = 1 << 27
 # block edge the CUDA kernels are compiled for (TILE in csrc/bsr_tile.cuh)
 _KERNEL_TILE = 128
+# bytes of one vertex's slice of the gather kernel's scratch (LINE in
+# csrc/spmm_gather.cu): 32 rows of f32, 64 of bf16 per chunk
+_GATHER_LINE = 128
+# a gather destination of more edges than this is summed by segments of
+# this many edges, one octet's work each, so no run is the launch's tail
+# (tools/spmm_compare.py --hub-sweep; its readings on rmat(20) in PERF.md)
+HUB_DEGREE = 128
 
 
 @dataclasses.dataclass
@@ -58,6 +72,10 @@ class BsrPrep:
     tile_ptr: torch.Tensor  # (n_tiles + 1,) int32
     tile: int
     n_tiles: int
+    # block b's column c sums source rows nz_src[col_ptr[b, c]:col_ptr[b,
+    # c + 1]] of its source tile (structure.block_nonzero_index)
+    col_ptr: torch.Tensor   # (n_blocks, tile + 1) int32
+    nz_src: torch.Tensor    # (nnz,) uint8
 
     @property
     def n_blocks(self) -> int:
@@ -71,38 +89,80 @@ class BsrPrep:
     def dtype(self) -> torch.dtype:
         return self.blocks.dtype
 
+    @property
+    def index_bytes(self) -> int:
+        """Bytes of the nonzero index the BSR SpMM kernel walks."""
+        return (self.col_ptr.numel() * self.col_ptr.element_size()
+                + self.nz_src.numel())
+
 
 @dataclasses.dataclass
 class GatherPrep:
     """The destination-sorted edge stream on one device: destination v
     sums the table columns ``src[row_ptr[v]:row_ptr[v+1]]``; destination
-    tile t owns edges ``tile_ptr[t]:tile_ptr[t+1]``."""
+    tile t owns edges ``tile_ptr[t]:tile_ptr[t+1]``.
+
+    A hub, a destination of more than ``hub_degree`` edges, is summed by
+    segments: hub ``h`` is vertex ``hub_vertex[h]``, its run cut into
+    segments ``hub_seg_ptr[h]:hub_seg_ptr[h+1]`` of ``hub_degree`` edges
+    (the last one shorter), segment ``j`` the edges ``seg[j, 0]:seg[j,
+    1]``, in stream order; the kernel adds a hub's segments in that order."""
 
     n: int
-    src: torch.Tensor       # (m,) int32
-    row_ptr: torch.Tensor   # (n + 1,) int64
-    tile_ptr: torch.Tensor  # (n_tiles + 1,) int64
+    src: torch.Tensor          # (m,) int32
+    row_ptr: torch.Tensor      # (n + 1,) int64
+    tile_ptr: torch.Tensor     # (n_tiles + 1,) int64
     tile: int
+    hub_degree: int
+    hub_vertex: torch.Tensor   # (n_hubs,) int32, ascending
+    hub_seg_ptr: torch.Tensor  # (n_hubs + 1,) int32
+    seg: torch.Tensor          # (n_segments, 2) int64, [first, end) edge
 
     @property
     def device(self) -> torch.device:
         return self.src.device
 
     @property
+    def n_hubs(self) -> int:
+        return int(self.hub_vertex.numel())
+
+    @property
+    def n_segments(self) -> int:
+        return int(self.seg.shape[0])
+
+    @property
     def nbytes(self) -> int:
+        """Bytes of the edge stream, its pointers and the hub segments."""
         return sum(t.numel() * t.element_size()
-                   for t in (self.src, self.row_ptr, self.tile_ptr))
+                   for t in (self.src, self.row_ptr, self.tile_ptr,
+                             self.hub_vertex, self.hub_seg_ptr, self.seg))
+
+    def scratch_bytes(self, dtype: torch.dtype) -> int:
+        """Device bytes one kernel call allocates besides its output: the
+        vertex-major ``(n, 128 / itemsize)`` chunk of the table in
+        ``dtype`` and the hub segments' f32 partial sums."""
+        chunk = _GATHER_LINE // dtype.itemsize
+        return self.n * _GATHER_LINE + self.n_segments * chunk * 4
 
 
 def from_arrays(n: int, blocks, src_tile, dst_tile, *,
                 dtype=torch.float32, device=None) -> BsrPrep:
     """A prep from the block stream as arrays (numpy or torch); builds the
-    run pointer from the sorted ``dst_tile``. ``device=None`` is CUDA."""
-    device = resolve_device(device)
+    run pointer from the sorted ``dst_tile`` and the nonzero index from
+    the blocks' nonzeros. ``device=None`` is CUDA."""
+    blocks = torch.as_tensor(blocks)
+    nz = [t.cpu().numpy() for t in torch.nonzero(blocks, as_tuple=True)]
+    col_ptr, nz_src = block_nonzero_index(
+        int(blocks.shape[0]), int(blocks.shape[-1]), *nz)
+    return _bsr_prep(n, blocks, src_tile, dst_tile, col_ptr, nz_src,
+                     dtype=dtype, device=resolve_device(device))
+
+
+def _bsr_prep(n, blocks, src_tile, dst_tile, col_ptr, nz_src, *, dtype,
+              device) -> BsrPrep:
     dst_np = np.array(dst_tile, np.int32)     # a writable copy for torch
     if np.any(np.diff(dst_np) < 0):
         raise ValueError("dst_tile must be sorted ascending")
-    blocks = torch.as_tensor(blocks)
     tile = int(blocks.shape[-1])
     n_tiles = -(-n // tile)
     tile_ptr = np.searchsorted(dst_np, np.arange(n_tiles + 1)).astype(np.int32)
@@ -114,7 +174,9 @@ def from_arrays(n: int, blocks, src_tile, dst_tile, *,
                                  device=device),
         dst_tile=torch.as_tensor(dst_np, device=device),
         tile_ptr=torch.as_tensor(tile_ptr, device=device),
-        tile=tile, n_tiles=n_tiles)
+        tile=tile, n_tiles=n_tiles,
+        col_ptr=torch.as_tensor(col_ptr, device=device),
+        nz_src=torch.as_tensor(nz_src, device=device))
 
 
 def prepare(g: Graph, method: str = "bsr", *, dtype=torch.float32,
@@ -123,26 +185,54 @@ def prepare(g: Graph, method: str = "bsr", *, dtype=torch.float32,
 
     ``"bsr"``: the dense blocks in storage dtype ``dtype``, densified where
     they live from the edges' slots, so the host never holds the dense
-    stream. ``"gather"``: the edge stream and its run pointers (it holds no
-    values, so ``dtype`` does not enter)."""
+    stream, and their nonzero index, built on the host. ``"gather"``: the
+    edge stream, its run pointers and the segments of its hubs (vertices
+    of more than ``HUB_DEGREE`` edges). It holds no values, so ``dtype``
+    does not enter."""
     if method not in METHODS:
         raise ValueError(f"unknown SpMM operand {method!r}; "
                          f"choose from {METHODS}")
     device = resolve_device(device)
     if method == "gather":
-        lay = g.gather_layout(tile)
-        return GatherPrep(
-            n=g.n, src=torch.as_tensor(lay.src, device=device),
-            row_ptr=torch.as_tensor(lay.row_ptr, device=device),
-            tile_ptr=torch.as_tensor(lay.tile_ptr, device=device), tile=tile)
+        return _gather_prep(g, device, tile)
     lay = g.padded(tile).bsr_layout(tile)
     blocks = torch.zeros((lay.n_blocks, tile, tile), dtype=dtype,
                          device=device)
     idx = [torch.as_tensor(a, device=device)
            for a in (lay.edge_block, lay.edge_src, lay.edge_dst)]
     blocks[idx[0], idx[1], idx[2]] = 1
-    return from_arrays(g.n, blocks, lay.src_tile, lay.dst_tile,
-                       dtype=dtype, device=device)
+    index = block_nonzero_index(lay.n_blocks, tile, lay.edge_block,
+                                lay.edge_src, lay.edge_dst)
+    return _bsr_prep(g.n, blocks, lay.src_tile, lay.dst_tile, *index,
+                     dtype=dtype, device=device)
+
+
+def _gather_prep(g: Graph, device, tile: int = 128,
+                 hub_degree: int = HUB_DEGREE) -> GatherPrep:
+    """:func:`prepare`'s gather operand, its hubs cut at ``hub_degree``
+    edges (``g.n`` cuts none)."""
+    if hub_degree < 1:
+        raise ValueError(f"hub_degree must be positive, got {hub_degree}")
+    lay = g.gather_layout(tile)
+    row_ptr = lay.row_ptr
+    deg = np.diff(row_ptr)
+    hubs = np.flatnonzero(deg > hub_degree)
+    n_seg = -(-deg[hubs] // hub_degree)
+    seg_ptr = np.concatenate([[0], np.cumsum(n_seg)]).astype(np.int64)
+    if seg_ptr[-1] >= 1 << 31:
+        raise ValueError("too many hub segments for int32 pointers")
+    owner = np.repeat(hubs, n_seg)
+    first = row_ptr[owner] + hub_degree * (
+        np.arange(seg_ptr[-1]) - np.repeat(seg_ptr[:-1], n_seg))
+    end = np.minimum(first + hub_degree, row_ptr[owner + 1])
+    return GatherPrep(
+        n=g.n, src=torch.as_tensor(lay.src, device=device),
+        row_ptr=torch.as_tensor(row_ptr, device=device),
+        tile_ptr=torch.as_tensor(lay.tile_ptr, device=device), tile=tile,
+        hub_degree=hub_degree,
+        hub_vertex=torch.as_tensor(hubs.astype(np.int32), device=device),
+        hub_seg_ptr=torch.as_tensor(seg_ptr.astype(np.int32), device=device),
+        seg=torch.as_tensor(np.stack([first, end], axis=1), device=device))
 
 
 def spmm_acc(m: torch.Tensor, prep: BsrPrep) -> torch.Tensor:
@@ -208,13 +298,13 @@ def spmm(m: torch.Tensor, prep: BsrPrep | GatherPrep) -> torch.Tensor:
         return out.zero_()
     fn = _build.kernel("rt_spmm_bsr", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m.device).cuda_stream
     _build.check("spmm", fn(
-        code, m.data_ptr(), rows, prep.n, prep.blocks.data_ptr(),
-        prep.src_tile.data_ptr(), prep.tile_ptr.data_ptr(), prep.n_tiles,
-        out.data_ptr(), stream))
+        code, m.data_ptr(), rows, prep.n, prep.src_tile.data_ptr(),
+        prep.tile_ptr.data_ptr(), prep.col_ptr.data_ptr(),
+        prep.nz_src.data_ptr(), prep.n_tiles, out.data_ptr(), stream))
     spmm.launches += 1
     return out
 
@@ -252,8 +342,8 @@ def spmm_gather_plain(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
 
 def spmm_gather(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
     """``Y = M @ A`` over the edge stream for a ``(..., C, N)`` table: the
-    plain version on a CPU tensor, one launch of ``csrc/spmm_gather.cu`` on
-    a CUDA tensor."""
+    plain version on a CPU tensor, one call of ``csrc/spmm_gather.cu`` on
+    a CUDA tensor (its kernels once per chunk of rows)."""
     if m.device.type == "cpu":
         return spmm_gather_plain(m, prep)
     if m.device != prep.device:
@@ -269,13 +359,24 @@ def spmm_gather(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
     out = torch.empty_like(m)
     if rows == 0 or prep.n == 0:
         return out
+    # the kernel's scratch (scratch_bytes): one vertex-major row chunk and
+    # the hubs' partial sums, from the caching allocator
+    chunk = _GATHER_LINE // m.element_size()
+    scratch = torch.empty((prep.n, chunk), dtype=m.dtype, device=m.device)
+    partials = torch.empty((prep.n_segments, chunk),
+                           dtype=torch.float32, device=m.device)
     fn = _build.kernel("rt_spmm_gather", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m.device).cuda_stream
     _build.check("spmm_gather", fn(
         code, m.data_ptr(), rows, prep.n, prep.src.data_ptr(),
-        prep.row_ptr.data_ptr(), out.data_ptr(), stream))
+        prep.row_ptr.data_ptr(), prep.hub_degree, prep.seg.data_ptr(),
+        prep.n_segments, prep.hub_vertex.data_ptr(),
+        prep.hub_seg_ptr.data_ptr(), prep.n_hubs, scratch.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), stream))
     spmm_gather.launches += 1
     return out
 

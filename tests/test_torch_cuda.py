@@ -20,7 +20,8 @@ from repro_torch.core.colorsets import split_tables
 from repro_torch.core.engines import CountingEngine
 from repro_torch.graph.coloring import batch_colorings
 from repro_torch.core.templates import TemplateSpec
-from repro_torch.graph.generators import erdos_renyi, grid_2d, rmat, star
+from repro_torch.graph.generators import (complete_graph, erdos_renyi,
+                                          grid_2d, rmat, star)
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.ema import ops as ema_ops
 from repro_torch.kernels.fused import ops as fused_ops
@@ -256,6 +257,38 @@ def test_gather_wrapper_raises(card):
         spmm_ops.spmm(m.transpose(0, 1), prep)
     with pytest.raises(ValueError):                        # wrong device
         spmm_ops.spmm(m, spmm_ops.prepare(g, "gather", device="cpu"))
+
+
+SPMM_CASES = {
+    "complete200": lambda: complete_graph(200),      # dense blocks
+    "star": lambda: star(3000),                      # a hub of 24 segments
+    "rmat_hubs": lambda: rmat(10, 16, seed=3),       # 28 hubs, 65 segments
+    "small": GRAPHS["small"],                        # n < 128
+    "ragged": GRAPHS["ragged"],                      # n % 128 != 0
+    "empty": GRAPHS["empty"],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gname", sorted(SPMM_CASES))
+@pytest.mark.parametrize("rows", [1, 70, 220])      # not multiples of a
+@pytest.mark.parametrize("method", ["bsr", "gather"])  # kernel's row chunk
+def test_spmm_kernels_match_plain_deterministically(card, dtype, gname, rows,
+                                                    method):
+    g = SPMM_CASES[gname]()
+    prep = spmm_ops.prepare(g, method, dtype=dtype, device=card)
+    if gname in ("star", "rmat_hubs") and method == "gather":
+        assert prep.n_segments >= 3
+    counter, plain = ((spmm_ops.spmm, spmm_ops.spmm_plain) if method == "bsr"
+                      else (spmm_ops.spmm_gather, spmm_ops.spmm_gather_plain))
+    m = _rand((rows, g.n), dtype, card, rows)
+    before = counter.launches
+    got = spmm_ops.spmm(m, prep)
+    assert counter.launches == before + 1
+    again = spmm_ops.spmm(m, prep)
+    assert counter.launches == before + 2
+    assert torch.equal(got, again)                   # bit for bit
+    _close(got, plain(m, prep), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -260,7 +260,9 @@ def test_gather_operand_is_the_edge_stream(gname):
     assert len(tp) == -(-g.n // 128) + 1 and tp[0] == 0 and tp[-1] == g.m
     for t in range(len(tp) - 1):
         assert ((dst[tp[t]:tp[t + 1]] // 128) == t).all()
-    assert prep.nbytes == 4 * g.m + 8 * (g.n + 1) + 8 * len(tp)
+    assert prep.nbytes == (4 * g.m + 8 * (g.n + 1) + 8 * len(tp)
+                           + 4 * prep.n_hubs + 4 * (prep.n_hubs + 1)
+                           + 16 * prep.n_segments)
     m = torch.as_tensor(_table(np.random.default_rng(1), (2, 9, g.n)))
     assert torch.equal(spmm_ops.spmm(m, prep),
                        spmm_ops.spmm(m, spmm_ops.prepare(g, device="cpu")))
