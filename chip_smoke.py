@@ -28,7 +28,9 @@ In order it prints:
    with the transposes in and out of its ``(n, rows)`` layout inside the
    call. The BSR SpMM also runs at path A's largest unfused passive table,
    and the gather operand's bytes, scratch bytes and hub segments are
-   printed;
+   printed. After paths A and B, every eMA and fused shape each launches
+   is timed at its batch beside its bound (``[sweep]``), and the costliest
+   of each kernel is held against its plain version;
 4. whole-path parity, the card's engine against the CPU engine (plain
    versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
    ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; u12
@@ -449,6 +451,103 @@ def phase_gather_kernel(g, batch: int) -> dict:
     return results
 
 
+def kernel_shapes(eng) -> dict:
+    """The eMA and fused launches one batch of an engine makes, by node
+    shape ``(t, t_a)``: every non-leaf node outside a shared-passive group
+    launches one of the two once a batch."""
+    import collections
+    sch, nodes = eng.schedule, eng.plan.nodes
+    out = {"ema": collections.Counter(),
+           "fused_spmm_ema": collections.Counter()}
+    for idx, node in enumerate(nodes):
+        if node.is_leaf or idx in sch.group_of:
+            continue
+        kind = "fused_spmm_ema" if idx in sch.fused_set else "ema"
+        out[kind][(node.size, nodes[node.active].size)] += 1
+    return out
+
+
+def phase_shape_sweep(label: str, g, k: int, batch: int,
+                      shapes: dict) -> dict:
+    """Every eMA and fused shape a path launches, at its batch, f32: the
+    kernel's time (one untimed call, then the mean of two), its bound and
+    launches x (time - bound) a batch. The costliest shape of each kernel
+    (launches x time) is then held against its plain version
+    (``_measure``). Returns ``{kernel: row}`` for those, with their shape
+    and launches a batch."""
+    import torch
+
+    from repro_torch.core.colorsets import split_tables
+    from repro_torch.kernels.ema import ops as ema_ops
+    from repro_torch.kernels.fused import ops as fused_ops
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    dev, dt, n = torch.device("cuda"), torch.float32, g.n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    prep = spmm_ops.prepare(g, dtype=dt, device=dev) \
+        if shapes["fused_spmm_ema"] else None
+
+    def case_of(name, t, t_a):
+        c_a, c_p = math.comb(k, t_a), math.comb(k, t - t_a)
+        s_, l_ = math.comb(k, t), math.comb(t, t_a)
+        ia, ip = (torch.as_tensor(a, dtype=torch.int32, device=dev)
+                  for a in split_tables(k, t, t_a))
+        m_a = torch.empty((batch, c_a, n), dtype=dt, device=dev).random_(
+            0, 4, generator=gen)
+        m_p = torch.empty((batch, c_p, n), dtype=dt, device=dev).random_(
+            0, 4, generator=gen)
+        shape = (f"m_a=({batch},{c_a},{n}) m_p=({batch},{c_p},{n}) "
+                 f"S={s_} L={l_} {label}")
+        data = (batch * (c_a + c_p + s_) * n * dt.itemsize
+                + 8 * ia.numel())
+        flops = 2 * batch * s_ * l_ * n
+        if name == "ema":
+            return dict(name=name, shape=shape, bytes=data, flops=flops,
+                        kernel=lambda: ema_ops.ema(m_a, m_p, ia, ip),
+                        plain=lambda: ema_ops.ema_plain(m_a, m_p, ia, ip),
+                        library=None)
+        return dict(name=name, shape=shape,
+                    bytes=data + 4 * (n + 1 + g.m),
+                    flops=flops + 2 * g.m * c_p * batch,
+                    kernel=lambda: fused_ops.fused_spmm_ema(m_a, m_p, ia, ip,
+                                                            prep),
+                    plain=lambda: fused_ops.fused_spmm_ema_plain(
+                        m_a, m_p, ia, ip, prep),
+                    library=None)
+
+    costliest = {}
+    for name, counts in shapes.items():
+        rows = []
+        for (t, t_a), count in sorted(counts.items()):
+            case = case_of(name, t, t_a)
+            case["kernel"]()
+            ms = _time_ms(case["kernel"], 2)
+            bound = max(case["bytes"] / HBM_BYTES_PER_S,
+                        case["flops"] / F32_FLOPS_PER_S) * 1e3
+            print(f"[sweep] {name:<15} {case['shape']:<62} x{count:<3} a "
+                  f"batch: kernel_ms={ms:.3f} bound_ms={bound:.3f} "
+                  f"launches_x_gap_ms={count * (ms - bound):.3f}", flush=True)
+            rows.append((count * ms, t, t_a, count))
+            del case
+            torch.cuda.empty_cache()
+        if not rows:
+            continue
+        print(f"[sweep] {name} {label}: {sum(c for *_, c in rows)} launches "
+              f"a batch, {sum(r[0] for r in rows):.3f} ms a batch by these "
+              f"times", flush=True)
+        _, t, t_a, count = max(rows)
+        case = case_of(name, t, t_a)
+        row = _measure(case, F32_RTOL, 3)
+        row.update(shape=case["shape"], launches_per_batch=count)
+        costliest[name] = row
+        del case
+        torch.cuda.empty_cache()
+    del prep
+    torch.cuda.empty_cache()
+    return costliest
+
+
 def phase_parity() -> None:
     """u12 on grid_2d(64, 64), 8 colorings: card engine vs CPU engine."""
     import torch
@@ -587,12 +686,13 @@ def phase_full(g) -> dict:
     return launches
 
 
-def phase_census_full(g) -> tuple[dict, int, int, int]:
+def phase_census_full(g) -> tuple[dict, int, int, int, dict]:
     """Path A: the k=10 census (106 trees) on grid_2d(1024, 1024), plan
     "dedup", 8 colorings, through ``compile_query(...).run()`` — the body
     of ``api.count_many`` — so the engine's groups and batch can be read.
     Returns (launches, batch size, largest group, colour sets of the
-    largest passive table the SpMM kernel takes)."""
+    largest passive table the SpMM kernel takes, eMA and fused launches a
+    batch by shape)."""
     import torch
 
     from repro_torch import api
@@ -641,7 +741,7 @@ def phase_census_full(g) -> tuple[dict, int, int, int]:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     return (launches, eng.batch_size, max(len(gr) for gr in groups),
-            max(unfused))
+            max(unfused), kernel_shapes(eng))
 
 
 def unfused_spmm_rows(eng) -> dict:
@@ -678,9 +778,9 @@ def layout_sizes(g, tile: int = 128, chunk: int = 512) -> dict:
             "padded_chunk_bytes": chunks * chunk * 12}
 
 
-def phase_gather_full(g) -> tuple[dict, int]:
+def phase_gather_full(g) -> tuple[dict, int, dict]:
     """Path B: u12 on rmat(20) through the gather SpMM, 8 colorings.
-    Returns (launches, batch size)."""
+    Returns (launches, batch size, eMA launches a batch by shape)."""
     import torch
 
     from repro_torch.core.engines import CountingEngine
@@ -718,7 +818,7 @@ def phase_gather_full(g) -> tuple[dict, int]:
     if launches["spmm_bsr"] or launches["fused_spmm_ema"] \
             or not launches["spmm_gather"] or not launches["ema"]:
         raise AssertionError(f"path B's launches are off: {launches}")
-    return launches, eng.batch_size
+    return launches, eng.batch_size, kernel_shapes(eng)
 
 
 def _profile(label: str, fn) -> None:
@@ -834,20 +934,27 @@ def main() -> int:
     _sync()
     by_path = {"u12_grid": phase_full(g)}
     _sync()
-    by_path["census10_grid"], batch_a, group_a, c_p = phase_census_full(g)
+    by_path["census10_grid"], batch_a, group_a, c_p, shapes_a = \
+        phase_census_full(g)
     _sync()
     group = phase_group_kernel(g, batch_a, group_a)
     _sync()
     phase_bsr_census_kernel(g, batch_a, c_p)
+    _sync()
+    sweeps = {"census10_grid": phase_shape_sweep("census", g, 10, batch_a,
+                                                 shapes_a)}
     _sync()
     t0 = time.perf_counter()
     g_rmat = rmat(20)
     print(f"[build] rmat(20) on the host: n={g_rmat.n} m={g_rmat.m} in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed loops); "
           f"other operands would hold {layout_sizes(g_rmat)}", flush=True)
-    by_path["u12_rmat20"], batch_b = phase_gather_full(g_rmat)
+    by_path["u12_rmat20"], batch_b, shapes_b = phase_gather_full(g_rmat)
     _sync()
     gather = phase_gather_kernel(g_rmat, batch_b)
+    _sync()
+    sweeps["u12_rmat20"] = phase_shape_sweep("path B", g_rmat, 12, batch_b,
+                                             shapes_b)
     _sync()
     phase_profile(g, g_rmat)
     _sync()
@@ -884,6 +991,14 @@ def main() -> int:
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"],
                      "library_transposed_ms": m["library_transposed_ms"]})
+        # the costliest shape of the kernel on the other paths
+        at = [dict(path=p, shape=r["shape"],
+                   launches_per_batch=r["launches_per_batch"], ms=r["ms"],
+                   bound_ms=r["bound_ms"], plain_ms=r["plain_ms"],
+                   max_abs_err=r["max_abs_err"])
+              for p, sw in sweeps.items() for k, r in sw.items() if k == name]
+        if at:
+            rows[-1]["at_paths"] = at
         if rows[-1]["launches"] == 0:
             raise AssertionError(f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))

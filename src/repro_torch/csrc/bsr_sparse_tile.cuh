@@ -1,6 +1,8 @@
-// The sparse walk of a destination tile's block run: only each block's
-// nonzeros, never the dense 128 x 128 product (spmm_bsr.cu; the fused
-// kernels can take it up in place of bsr_tile.cuh's dense walk).
+// The sparse walks of a destination tile's block run: only each block's
+// nonzeros, never the dense 128 x 128 product. Two forms: the BSR SpMM's
+// (spmm_bsr.cu), which sums 32 table rows in registers over the whole
+// tile, and the fused kernel's (fused_spmm_ema.cu), which sums every table
+// row into a TV-column slice of y in shared memory.
 //
 // Operand: besides the destination-sorted block stream (src_tile,
 // tile_ptr as in bsr_tile.cuh), each block's nonzeros by destination
@@ -10,15 +12,27 @@
 // nonzeros of its 16,384 entries, so the dense product multiplies zeros
 // ~150 times for each useful add.
 //
-// One CUDA block of SP_THREADS owns a whole destination tile (all TILE
-// columns) and SP_ROWS rows of the table. For each block of the run it
-// stages the source slice m[0 : SP_ROWS, src_tile * TILE : + TILE] (each
-// row 512 contiguous bytes in f32) into shared memory with cp.async,
-// double-buffered so the next block's slice is in flight while this one
-// is summed. Thread t owns column t % TILE and SP_ROWS_PER_THREAD
-// consecutive rows; it adds, for each nonzero of its column, the staged
-// source value of each of its rows. The order of the sums is fixed (blocks
-// in run order, a column's sources ascending). No atomics.
+// The SpMM's walk: one CUDA block of SP_THREADS owns a whole destination
+// tile (all TILE columns) and SP_ROWS rows of the table. For each block of
+// the run it stages the source slice m[0 : SP_ROWS, src_tile * TILE : +
+// TILE] (each row 512 contiguous bytes in f32) into shared memory with
+// cp.async, double-buffered so the next block's slice is in flight while
+// this one is summed. Thread t owns column t % TILE and
+// SP_ROWS_PER_THREAD consecutive rows; it adds, for each nonzero of its
+// column, the staged source value of each of its rows.
+//
+// The slice walk (bsr_slice_run_accumulate): one CUDA block owns one
+// TV-column slice of a destination tile and every row of the table, and
+// stages nothing. A slice of a road-like tile lists ~4 sources a column
+// over its run; staging source slices (whole, or only the range its
+// nonzeros touch) would bring in several times the bytes it sums and,
+// behind a ring small enough to leave room for y, keep too few in flight
+// (PERF.md §6). Each thread loads its column's listed sources
+// straight into registers, 16 table rows at once; the 32 columns of a
+// warp share their lines through L1.
+//
+// Both walks fix the order of the sums (blocks in run order, a column's
+// sources ascending) and use no atomics.
 #pragma once
 
 #include <cstdint>
@@ -123,6 +137,52 @@ __device__ void bsr_sparse_run_accumulate(
         acc[k] += to_f32(ms[k * TILE + i]);
     }
     __syncthreads();  // this buffer may be staged again
+  }
+}
+
+// ------------------------------------------------------ the slice walk
+constexpr int SLICES = TILE / TV;        // column slices of a tile
+constexpr int SL_GROUPS = THREADS / TV;  // row groups of a CUDA block
+constexpr int SL_ROWS = 16;              // rows a thread sums side by side
+
+// y[r * TV + c] = sum over the run's blocks b and the nonzeros i of column
+// col0 + c of m[r * n + src_tile[b] * TILE + i], for rows r < rows; y is
+// shared memory. Thread t owns column t % TV and rows t / TV + SL_GROUPS *
+// k, SL_ROWS of them at a time: for each nonzero of its column it loads
+// the listed source of each of those rows straight from device memory, so
+// SL_ROWS loads a thread are in flight, and the lines a warp's 32 columns
+// share are read once through L1. The caller syncs before reading y.
+template <typename T>
+__device__ void bsr_slice_run_accumulate(
+    const T* __restrict__ m, long long n, int rows,
+    const int* __restrict__ src_tile, const int* __restrict__ col_ptr,
+    const unsigned char* __restrict__ nz_src, int blk_lo, int blk_hi,
+    int col0, float* y) {
+  const int c = threadIdx.x % TV, g = threadIdx.x / TV;
+  for (int r0 = g; r0 < rows; r0 += SL_GROUPS * SL_ROWS) {
+    float acc[SL_ROWS];
+    const T* row[SL_ROWS];
+#pragma unroll
+    for (int k = 0; k < SL_ROWS; ++k) {
+      acc[k] = 0.f;
+      row[k] = m + (long long)(r0 + SL_GROUPS * k) * n;
+    }
+    for (int b = blk_lo; b < blk_hi; ++b) {
+      const long long src0 = (long long)src_tile[b] * TILE;
+      const int* cp = col_ptr + (long long)b * (TILE + 1) + col0 + c;
+      const int lo = cp[0], hi = cp[1];
+      for (int j = lo; j < hi; ++j) {
+        const long long v = src0 + nz_src[j];
+#pragma unroll
+        for (int k = 0; k < SL_ROWS; ++k)
+          if (r0 + SL_GROUPS * k < rows) acc[k] += to_f32(__ldg(row[k] + v));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SL_ROWS; ++k) {
+      const int r = r0 + SL_GROUPS * k;
+      if (r < rows) y[r * TV + c] = acc[k];
+    }
   }
 }
 

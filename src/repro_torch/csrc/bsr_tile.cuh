@@ -1,7 +1,8 @@
 // Shared pieces of the port's kernels: the tile constants and the storage
-// conversions, and the dense run walk of the fused kernels
-// (fused_spmm_ema.cu, fused_spmm_ema_shared.cu; spmm_bsr.cu walks only the
-// nonzeros, bsr_sparse_tile.cuh).
+// conversions, and the dense run walk of the shared-passive group kernel
+// (fused_spmm_ema_shared.cu), the only kernel that still multiplies whole
+// blocks; spmm_bsr.cu and fused_spmm_ema.cu walk only the nonzeros
+// (bsr_sparse_tile.cuh).
 //
 // The adjacency is the destination-sorted stream of dense TILE x TILE
 // {0,1} blocks of Graph.bsr(); tile_ptr[t]..tile_ptr[t+1] is destination
@@ -11,8 +12,9 @@
 // does not have, so here the loop over the run lives inside the block. No
 // atomics, and the summation order is fixed.
 //
-// The Python fit model (kernels/fused/ops.py) mirrors TILE, TV, STAGE and
-// the shared-memory layout below; change them together.
+// The Python fit model (kernels/fused/ops.py, fused_group_smem_bytes)
+// mirrors TILE, TV, STAGE and the dense walk's shared-memory layout below;
+// change them together.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +45,30 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// elements c and c + 1 (c even) of a row in shared memory, as f32
+__device__ __forceinline__ float2 pair_at(const float* row, int c) {
+  return *reinterpret_cast<const float2*>(row + c);
+}
+__device__ __forceinline__ float2 pair_at(const __nv_bfloat16* row, int c) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+}
+
+// o[0] = v.x and, when both, o[1] = v.y, rounded to T; one store when vec
+// (o 8-byte aligned in f32, 4-byte in bf16)
+template <typename T>
+__device__ __forceinline__ void store_pair(T* o, float2 v, bool both,
+                                           bool vec) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float2*>(o) = v;
+    else
+      *reinterpret_cast<__nv_bfloat162*>(o) = __float22bfloat162_rn(v);
+    return;
+  }
+  o[0] = from_f32<T>(v.x);
+  if (both) o[1] = from_f32<T>(v.y);
 }
 
 // Shared floats the run walk needs besides y: one TILE x TV block slice and

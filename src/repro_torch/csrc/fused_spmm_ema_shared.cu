@@ -25,8 +25,9 @@
 // GroupMember rows (kernels/fused/ops.py builds it); the wrapper raises
 // above MAX_GROUP consumers.
 //
-// What bounds it on the H100: the dense-block SpMM leg on CUDA cores, as in
-// fused_spmm_ema.cu, now paid once per group instead of once per consumer;
+// What bounds it on the H100: the dense-block SpMM leg on CUDA cores (~150x
+// the useful multiply-adds on a road-like graph; fused_spmm_ema.cu walks
+// only the nonzeros), paid once per group instead of once per consumer;
 // then the m_a row reads of the split combinations (device-memory bytes).
 // Shared memory: y takes c_p * TV * 4 bytes beside 32 KB of staging and a
 // 1 KB reduction buffer (the fit model is fused_group_fits_smem).

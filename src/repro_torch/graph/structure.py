@@ -7,8 +7,9 @@ derived on demand:
 * ``gather``       — the destination-sorted edge stream with per-vertex and
                      per-destination-tile run pointers, for the gather SpMM.
 * ``bsr``          — 128x128 dense-ified adjacency tiles (block-sparse rows)
-                     for the fused SpMM->eMA kernels, and each block's
-                     nonzeros by destination column for the BSR SpMM.
+                     for the shared-passive group kernel, and each block's
+                     nonzeros by destination column for the BSR SpMM and
+                     the fused kernel.
 
 All formats represent the *reverse* traversal used by the DP: for an undirected
 graph, A is symmetric and Y[:, i] = sum_{j in N(i)} M[:, j].

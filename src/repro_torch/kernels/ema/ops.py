@@ -76,15 +76,19 @@ def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
                       device=m_a.device)
     if out.numel() == 0:
         return out
+    # the staged path's split table: two terms' row offsets to an int4
+    pairs = torch.empty(s * ((l + 1) // 2) * 4, dtype=torch.int32,
+                        device=m_a.device)
     fn = _build.kernel("rt_ema", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m_a.device).cuda_stream
     _build.check("ema", fn(
         code, m_a.data_ptr(), y_p.data_ptr(), ia.data_ptr(), ip.data_ptr(),
-        s, l, m_a.shape[-2], y_p.shape[-2], n, batch, out.data_ptr(), stream))
+        s, l, m_a.shape[-2], y_p.shape[-2], n, batch, pairs.data_ptr(),
+        out.data_ptr(), stream))
     ema.launches += 1
     return out
 

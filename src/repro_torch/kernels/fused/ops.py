@@ -4,14 +4,16 @@ models.
 
 The kernel (``csrc/fused_spmm_ema.cu``) keeps the ``(C(k,t_p), TV)`` slice
 of the neighbor sums ``y`` of one destination tile in shared memory and
-never writes ``y`` to device memory. :func:`fused_fits_smem` is the model
-the engine admits plan nodes by, in place of the TPU's VMEM budget
-(``fused_fits_vmem`` in the JAX package).
+never writes ``y`` to device memory; it sums ``y`` over each block's
+nonzeros (``BsrPrep.col_ptr``, ``nz_src``). :func:`fused_fits_smem` is
+the model the engine admits plan nodes by, in place of the TPU's VMEM
+budget (``fused_fits_vmem`` in the JAX package).
 
 :func:`fused_spmm_ema_shared` is the group form: several consumers of ONE
 passive child from one launch of ``csrc/fused_spmm_ema_shared.cu``, whose
-SpMM leg runs once into shared ``y`` and whose consumers each apply their
-split combination to it. :func:`fused_group_fits_smem` is its fit model
+SpMM leg runs once into shared ``y`` over the dense blocks
+(``BsrPrep.blocks``) and whose consumers each apply their split
+combination to it. :func:`fused_group_fits_smem` is its fit model
 (``fused_group_fits_vmem`` in the JAX package).
 
 On CPU tensors the wrappers run their plain versions; on CUDA tensors they
@@ -34,10 +36,14 @@ __all__ = ["fused_spmm_ema", "fused_spmm_ema_plain", "fused_fits_smem",
            "fused_spmm_ema_shared_plain", "fused_group_fits_smem",
            "fused_group_smem_bytes", "MAX_GROUP", "SMEM_LIMIT"]
 
-# the layout of csrc/bsr_tile.cuh: TV destination columns per CUDA block,
-# one TILE x TV block slice and one STAGE x TILE table slice staged beside
-# y[c_p][TV]; every buffer in the accumulator dtype
+# TV destination columns per CUDA block of both kernels, beside y[c_p][TV]
+# in f32 (csrc/bsr_tile.cuh). The fused kernel keeps its m_a slice in at
+# most A_SLICE_BYTES beside y (csrc/fused_spmm_ema.cu); the group kernel's
+# dense walk stages one TILE x TV block slice and one STAGE x TILE table
+# slice, in f32
 TILE, TV, STAGE = 128, 32, 32
+A_SLICE_BYTES = 32_768
+_Y_ITEM = 4
 # warps per CUDA block: the group kernel reduces a row's split partials
 # across them in a WARPS x TV shared buffer
 WARPS = 8
@@ -48,9 +54,10 @@ MAX_GROUP = 16
 
 
 def fused_smem_bytes(c_p: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of one fused launch's CUDA block."""
-    item = accum_dtype(dtype).itemsize
-    return (TILE * TV + STAGE * TILE + c_p * TV) * item
+    """Most dynamic shared memory one fused launch's CUDA block takes:
+    ``y`` beside the largest m_a slice it keeps (the same for f32 and bf16
+    storage; a wider m_a is read from device memory instead)."""
+    return A_SLICE_BYTES + c_p * TV * _Y_ITEM
 
 
 def fused_fits_smem(c_p: int, dtype=torch.float32) -> bool:
@@ -61,10 +68,10 @@ def fused_fits_smem(c_p: int, dtype=torch.float32) -> bool:
 
 def fused_group_smem_bytes(c_p: int, dtype=torch.float32) -> int:
     """Dynamic shared memory of one shared-passive group launch's CUDA
-    block: ``y[c_p, TV]`` paid once for every consumer, beside the staging
-    buffers of :func:`fused_smem_bytes` and the split-reduction buffer."""
-    return fused_smem_bytes(c_p, dtype) \
-        + WARPS * TV * accum_dtype(dtype).itemsize
+    block: ``y[c_p, TV]`` paid once for every consumer, beside the dense
+    walk's block and table slices and the split-reduction buffer."""
+    return (TILE * TV + STAGE * TILE + c_p * TV + WARPS * TV) \
+        * accum_dtype(dtype).itemsize
 
 
 def fused_group_fits_smem(n_consumers: int, c_p: int,
@@ -115,14 +122,14 @@ def fused_spmm_ema(m_a: torch.Tensor, m_p: torch.Tensor, ia: torch.Tensor,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m_a.device).cuda_stream
     _build.check("fused_spmm_ema", fn(
         code, m_a.data_ptr(), m_p.data_ptr(), ia.data_ptr(), ip.data_ptr(),
-        s, l, c_a, c_p, n, batch, prep.blocks.data_ptr(),
-        prep.src_tile.data_ptr(), prep.tile_ptr.data_ptr(), prep.n_tiles,
-        out.data_ptr(), stream))
+        s, l, c_a, c_p, n, batch, prep.src_tile.data_ptr(),
+        prep.tile_ptr.data_ptr(), prep.col_ptr.data_ptr(),
+        prep.nz_src.data_ptr(), prep.n_tiles, out.data_ptr(), stream))
     fused_spmm_ema.launches += 1
     return out
 

@@ -5,8 +5,9 @@ over two operands.
 stream of dense 128x128 {0,1} blocks (``Graph.bsr``) on a device, plus the
 per-destination-tile run pointer ``tile_ptr`` the CUDA kernels walk and
 each block's nonzeros by destination column (``col_ptr``, ``nz_src``:
-``structure.block_nonzero_index``). The BSR SpMM kernel walks only those
-nonzeros; the fused kernels still multiply the dense blocks.
+``structure.block_nonzero_index``). The BSR SpMM and the fused kernel
+walk only those nonzeros; the shared-passive group kernel still
+multiplies the dense blocks.
 ``prepare(graph, "gather")`` puts the destination-sorted edge stream
 (``Graph.gather_layout``) there instead, with its hubs' segments: no
 blocks, so it fits graphs whose dense blocks would not (a social graph's
@@ -91,7 +92,8 @@ class BsrPrep:
 
     @property
     def index_bytes(self) -> int:
-        """Bytes of the nonzero index the BSR SpMM kernel walks."""
+        """Bytes of the nonzero index the BSR SpMM and fused kernels
+        walk."""
         return (self.col_ptr.numel() * self.col_ptr.element_size()
                 + self.nz_src.numel())
 

@@ -291,6 +291,80 @@ def test_spmm_kernels_match_plain_deterministically(card, dtype, gname, rows,
     _close(got, plain(m, prep), dtype)
 
 
+def _rand_splits(s, l, c_a, c_p, device, seed):
+    """Random (S, L) int32 split tables into c_a and c_p rows."""
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.integers(0, c, size=(s, l)), dtype=torch.int32,
+                            device=device) for c in (c_a, c_p)]
+
+
+# fused kernel edge cases: (graph, c_a, c_p, S, L). On the 64 x 64 mesh a
+# tile's +-1 neighbour blocks touch only half its 32-column slices, so the
+# others find no nonzero in them; n = 301 (not a multiple of 4 or 8) copies
+# the m_a slice element by element and stores outputs one by one; c_p = 70
+# and 37 are no multiple of the 16 x 8 rows of a pass; c_p = 1,560 fills
+# the fit limit; c_a = 300 in f32 is over the m_a slice's 32 KB.
+FUSED_CASES = {
+    "skipped_blocks": (lambda: grid_2d(64, 64), 12, 66, 220, 3),
+    "n_not_vec": (lambda: erdos_renyi(301, 7.0, seed=4), 12, 70, 40, 5),
+    "c_p_ragged": (lambda: grid_2d(40, 33), 9, 37, 17, 4),
+    "c_p_fit_limit": (lambda: erdos_renyi(300, 7.0, seed=5), 6, 1560, 3, 6),
+    "wide_m_a": (lambda: grid_2d(40, 33), 300, 45, 260, 7),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_kernel_edge_cases_deterministically(card, dtype, case):
+    build, c_a, c_p, s, l = FUSED_CASES[case]
+    g = build()
+    prep = spmm_ops.prepare(g, dtype=dtype, device=card)
+    if case == "skipped_blocks":       # a slice without nonzeros in a block
+        col_ptr = prep.col_ptr.cpu().numpy()
+        assert (col_ptr[:, 0:128:32] == col_ptr[:, 32::32]).any()
+    if case == "n_not_vec":
+        assert g.n % 8 != 0 and g.n % 4 != 0
+    ia, ip = _rand_splits(s, l, c_a, c_p, card, c_p)
+    m_a = _rand((2, c_a, g.n), dtype, card, 1)
+    m_p = _rand((2, c_p, g.n), dtype, card, 2)
+    before = fused_ops.fused_spmm_ema.launches
+    got = fused_ops.fused_spmm_ema(m_a, m_p, ia, ip, prep)
+    again = fused_ops.fused_spmm_ema(m_a, m_p, ia, ip, prep)
+    assert fused_ops.fused_spmm_ema.launches == before + 2
+    assert torch.equal(got, again)                   # bit for bit
+    _close(got, fused_ops.fused_spmm_ema_plain(m_a, m_p, ia, ip, prep), dtype)
+
+
+# eMA edge cases: (c_a, c_p, S, L, n). The staged path holds c_a + c_p
+# <= 1,816 rows in f32 and 3,632 in bf16: "over_smem" takes the direct path
+# in both dtypes, "staged" the staged one; "census_root" (S = 1) and
+# "few_rows" (S <= 8) the direct one; n = 1001 stages element by element.
+EMA_CASES = {
+    "staged": (924, 12, 100, 7, 1000),
+    "staged_n_not_vec": (300, 45, 60, 9, 1001),
+    "over_smem": (3600, 100, 20, 5, 1000),
+    "census_root": (252, 252, 1, 252, 1000),
+    "few_rows": (210, 10, 8, 6, 1001),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(EMA_CASES))
+def test_ema_kernel_paths_deterministically(card, dtype, case):
+    c_a, c_p, s, l, n = EMA_CASES[case]
+    ia, ip = _rand_splits(s, l, c_a, c_p, card, s)
+    m_a = _rand((3, c_a, n), dtype, card, 3)
+    y_p = _rand((3, c_p, n), dtype, card, 4)
+    before = ema_ops.ema.launches
+    got = ema_ops.ema(m_a, y_p, ia, ip)
+    again = ema_ops.ema(m_a, y_p, ia, ip)
+    assert ema_ops.ema.launches == before + 2
+    assert torch.equal(got, again)                   # bit for bit
+    _close(got, ema_ops.ema_plain(m_a, y_p, ia, ip), dtype)
+    if dtype == torch.float32:                       # terms ascending in l
+        assert torch.equal(got, ema_ops.ema_plain(m_a, y_p, ia, ip))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bundle_engine_on_card_matches_cpu(card, dtype):
     g = grid_2d(30, 30)

@@ -135,3 +135,13 @@ def test_card_fit_model_rejects_wide_passive_tables():
                          device="cpu", memory_budget_bytes=1 << 34)
     wide = [i for i, w in widths.items() if w == 6435]
     assert all(eng.fusion_report[i] == "smem_overflow" for i in wide)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_fit_model_admits_passive_tables_up_to_1560(dtype):
+    """The fused kernel's m_a slice (at most 32 KB) beside y[c_p][32] in
+    f32 fills the 227 KB a block may have exactly at c_p = 1,560, whatever
+    the storage dtype."""
+    from repro_torch.kernels.fused.ops import SMEM_LIMIT, fused_smem_bytes
+    assert fused_smem_bytes(1560, dtype) == SMEM_LIMIT == 232_448
+    assert fused_fits_smem(1560, dtype) and not fused_fits_smem(1561, dtype)

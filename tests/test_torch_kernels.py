@@ -205,10 +205,11 @@ def test_shared_group_plain_is_one_spmm_then_one_ema_each():
 
 def test_group_fit_model():
     """The census roots' group (c_p = 252) fits with room to spare; the
-    card's limit is c_p <= 1,552 for a group (8 warps' partials beside the
-    fused kernel's layout), and at most MAX_GROUP consumers."""
+    card's limit is c_p <= 1,552 for a group (the dense walk's 128 x 32
+    block slice and 32 x 128 table slice, y and 8 warps' partials, all
+    f32), and at most MAX_GROUP consumers."""
     assert fused_ops.fused_group_smem_bytes(252) \
-        == fused_ops.fused_smem_bytes(252) + 8 * 32 * 4
+        == (128 * 32 + 32 * 128 + 252 * 32 + 8 * 32) * 4
     assert fused_ops.fused_group_fits_smem(4, 252)
     assert fused_ops.fused_group_fits_smem(2, 1552, torch.bfloat16)
     assert not fused_ops.fused_group_fits_smem(2, 1553)

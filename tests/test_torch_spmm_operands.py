@@ -22,6 +22,7 @@ from repro_torch.kernels.spmm.ops import HUB_DEGREE
 BSR_GRAPHS = {
     "er_ragged": lambda: erdos_renyi(300, 6.0, seed=3),
     "grid": lambda: grid_2d(12, 11),
+    "small": lambda: grid_2d(5, 7),                       # n < one tile
     "empty": lambda: Graph.from_edges(200, np.zeros((0, 2), np.int64)),
 }
 # rmat(8) at edge factor 32 has 8 hubs above HUB_DEGREE (16 segments), the
