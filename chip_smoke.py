@@ -28,9 +28,10 @@ In order it prints:
    with the transposes in and out of its ``(n, rows)`` layout inside the
    call. The BSR SpMM also runs at path A's largest unfused passive table,
    and the gather operand's bytes, scratch bytes and hub segments are
-   printed. After paths A and B, every eMA and fused shape each launches
-   is timed at its batch beside its bound (``[sweep]``), and the costliest
-   of each kernel is held against its plain version;
+   printed. After paths A and B, every eMA, fused and shared-passive
+   group shape each launches is timed at its batch beside its bound
+   (``[sweep]``), and the costliest of each kernel is held against its
+   plain version;
 4. whole-path parity, the card's engine against the CPU engine (plain
    versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
    ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; u12
@@ -331,9 +332,13 @@ def _library_transposed(csr, m):
 
 
 def phase_group_kernel(g, batch: int, n_cons: int) -> dict:
-    """The shared-passive group kernel against its plain version at path
-    A's group shape: ``n_cons`` census roots (k=10: c_a = c_p = C(10,5) =
-    252, S = 1, L = 252) sharing one passive table, path A's batch."""
+    """The shared-passive group kernel against its plain version at a
+    fixed shape: ``n_cons`` census roots (k=10: c_a = c_p = C(10,5) = 252,
+    S = 1, L = 252) sharing one passive table, at path A's batch. With
+    path A's largest group (3) this is the shape the kernel's row has been
+    timed at since it was ported; the census itself does not launch it
+    (its c_p = 252 group has 2 consumers, its 3-consumer groups c_p = 210).
+    The census's own group shapes are timed by ``phase_shape_sweep``."""
     import torch
 
     from repro_torch.core.colorsets import split_tables
@@ -452,29 +457,35 @@ def phase_gather_kernel(g, batch: int) -> dict:
 
 
 def kernel_shapes(eng) -> dict:
-    """The eMA and fused launches one batch of an engine makes, by node
-    shape ``(t, t_a)``: every non-leaf node outside a shared-passive group
-    launches one of the two once a batch."""
+    """The eMA, fused and group launches one batch of an engine makes, by
+    shape: every non-leaf node outside a shared-passive group launches an
+    eMA or a fused kernel once a batch, keyed by its ``(t, t_a)``; every
+    group launches the group kernel once, keyed by its members' ``(t,
+    t_a)`` in member order."""
     import collections
     sch, nodes = eng.schedule, eng.plan.nodes
     out = {"ema": collections.Counter(),
-           "fused_spmm_ema": collections.Counter()}
+           "fused_spmm_ema": collections.Counter(),
+           "fused_spmm_ema_shared": collections.Counter()}
     for idx, node in enumerate(nodes):
         if node.is_leaf or idx in sch.group_of:
             continue
         kind = "fused_spmm_ema" if idx in sch.fused_set else "ema"
         out[kind][(node.size, nodes[node.active].size)] += 1
+    for grp in sch.fused_groups:
+        out["fused_spmm_ema_shared"][tuple(
+            (nodes[m].size, nodes[nodes[m].active].size) for m in grp)] += 1
     return out
 
 
 def phase_shape_sweep(label: str, g, k: int, batch: int,
                       shapes: dict) -> dict:
-    """Every eMA and fused shape a path launches, at its batch, f32: the
-    kernel's time (one untimed call, then the mean of two), its bound and
-    launches x (time - bound) a batch. The costliest shape of each kernel
-    (launches x time) is then held against its plain version
-    (``_measure``). Returns ``{kernel: row}`` for those, with their shape
-    and launches a batch."""
+    """Every eMA, fused and shared-passive group shape a path launches,
+    at its batch, f32: the kernel's time (one untimed call, then the mean
+    of two), its bound and launches x (time - bound) a batch. The costliest
+    shape of each kernel (launches x time) is then held against its plain
+    version (``_measure``). Returns ``{kernel: row}`` for those, with their
+    shape and launches a batch."""
     import torch
 
     from repro_torch.core.colorsets import split_tables
@@ -486,17 +497,50 @@ def phase_shape_sweep(label: str, g, k: int, batch: int,
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     prep = spmm_ops.prepare(g, dtype=dt, device=dev) \
-        if shapes["fused_spmm_ema"] else None
+        if shapes["fused_spmm_ema"] or shapes["fused_spmm_ema_shared"] \
+        else None
 
-    def case_of(name, t, t_a):
+    def rand(rows):
+        return torch.empty((batch, rows, n), dtype=dt, device=dev).random_(
+            0, 4, generator=gen)
+
+    def group_case(members):
+        # members share one passive child: t - t_a is the same for all
+        c_p = math.comb(k, members[0][0] - members[0][1])
+        m_p = rand(c_p)
+        m_as, ias, ips, dims = [], [], [], []
+        for t, t_a in members:
+            ia, ip = (torch.as_tensor(a, dtype=torch.int32, device=dev)
+                      for a in split_tables(k, t, t_a))
+            m_as.append(rand(math.comb(k, t_a)))
+            ias.append(ia)
+            ips.append(ip)
+            dims.append((math.comb(k, t_a), *ia.shape))
+        shape = (f"{len(members)}x m_p=({batch},{c_p},{n}) (c_a,S,L)="
+                 f"{','.join(f'({a},{s_},{l_})' for a, s_, l_ in dims)} "
+                 f"{label}")
+        return dict(
+            name="fused_spmm_ema_shared", shape=shape,
+            bytes=batch * (c_p + sum(a + s_ for a, s_, _ in dims)) * n
+            * dt.itemsize + sum(8 * ia.numel() for ia in ias)
+            + 4 * (n + 1 + g.m),
+            flops=2 * g.m * c_p * batch
+            + sum(2 * batch * s_ * l_ * n for _, s_, l_ in dims),
+            kernel=lambda: fused_ops.fused_spmm_ema_shared(
+                m_as, m_p, ias, ips, prep),
+            plain=lambda: fused_ops.fused_spmm_ema_shared_plain(
+                m_as, m_p, ias, ips, prep),
+            library=None)
+
+    def case_of(name, *key):
+        if name == "fused_spmm_ema_shared":
+            return group_case(key)
+        t, t_a = key
         c_a, c_p = math.comb(k, t_a), math.comb(k, t - t_a)
         s_, l_ = math.comb(k, t), math.comb(t, t_a)
         ia, ip = (torch.as_tensor(a, dtype=torch.int32, device=dev)
                   for a in split_tables(k, t, t_a))
-        m_a = torch.empty((batch, c_a, n), dtype=dt, device=dev).random_(
-            0, 4, generator=gen)
-        m_p = torch.empty((batch, c_p, n), dtype=dt, device=dev).random_(
-            0, 4, generator=gen)
+        m_a, m_p = rand(c_a), rand(c_p)
         shape = (f"m_a=({batch},{c_a},{n}) m_p=({batch},{c_p},{n}) "
                  f"S={s_} L={l_} {label}")
         data = (batch * (c_a + c_p + s_) * n * dt.itemsize
@@ -519,16 +563,16 @@ def phase_shape_sweep(label: str, g, k: int, batch: int,
     costliest = {}
     for name, counts in shapes.items():
         rows = []
-        for (t, t_a), count in sorted(counts.items()):
-            case = case_of(name, t, t_a)
+        for key, count in sorted(counts.items()):
+            case = case_of(name, *key)
             case["kernel"]()
             ms = _time_ms(case["kernel"], 2)
             bound = max(case["bytes"] / HBM_BYTES_PER_S,
                         case["flops"] / F32_FLOPS_PER_S) * 1e3
-            print(f"[sweep] {name:<15} {case['shape']:<62} x{count:<3} a "
+            print(f"[sweep] {name:<21} {case['shape']:<62} x{count:<3} a "
                   f"batch: kernel_ms={ms:.3f} bound_ms={bound:.3f} "
                   f"launches_x_gap_ms={count * (ms - bound):.3f}", flush=True)
-            rows.append((count * ms, t, t_a, count))
+            rows.append((count * ms, key, count))
             del case
             torch.cuda.empty_cache()
         if not rows:
@@ -536,8 +580,8 @@ def phase_shape_sweep(label: str, g, k: int, batch: int,
         print(f"[sweep] {name} {label}: {sum(c for *_, c in rows)} launches "
               f"a batch, {sum(r[0] for r in rows):.3f} ms a batch by these "
               f"times", flush=True)
-        _, t, t_a, count = max(rows)
-        case = case_of(name, t, t_a)
+        _, key, count = max(rows)
+        case = case_of(name, *key)
         row = _measure(case, F32_RTOL, 3)
         row.update(shape=case["shape"], launches_per_batch=count)
         costliest[name] = row

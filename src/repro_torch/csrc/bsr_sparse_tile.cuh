@@ -1,8 +1,9 @@
 // The sparse walks of a destination tile's block run: only each block's
 // nonzeros, never the dense 128 x 128 product. Two forms: the BSR SpMM's
 // (spmm_bsr.cu), which sums 32 table rows in registers over the whole
-// tile, and the fused kernel's (fused_spmm_ema.cu), which sums every table
-// row into a TV-column slice of y in shared memory.
+// tile, and the fused and group kernels' (fused_spmm_ema.cu,
+// fused_spmm_ema_shared.cu), which sum every table row into a TV-column
+// slice of y in shared memory.
 //
 // Operand: besides the destination-sorted block stream (src_tile,
 // tile_ptr as in bsr_tile.cuh), each block's nonzeros by destination
@@ -137,6 +138,34 @@ __device__ void bsr_sparse_run_accumulate(
         acc[k] += to_f32(ms[k * TILE + i]);
     }
     __syncthreads();  // this buffer may be staged again
+  }
+}
+
+// The m_a slice of the fused and group kernels, kept in shared memory
+// when its c_a rows fit A_SLICE_BYTES: a_s[r * TV + i] = ma[r * n + v0 +
+// i] for r < c_a, zero past n; one committed cp.async group when rows
+// start on 16-byte boundaries, else element by element
+constexpr int A_SLICE_BYTES = 32768;
+
+template <typename T>
+__device__ __forceinline__ void stage_slice(T* a_s, const T* ma, int c_a,
+                                            long long n, long long v0) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int PIECES = TV / VEC;
+  if (n % VEC == 0 && (reinterpret_cast<std::uintptr_t>(ma) & 15) == 0) {
+    for (int i = threadIdx.x; i < c_a * PIECES; i += THREADS) {
+      const int r = i / PIECES, q = i % PIECES;
+      const long long v = v0 + q * VEC;
+      const bool in = v < n;
+      cp_async16(a_s + r * TV + q * VEC, in ? ma + r * n + v : ma,
+                 in ? 16 : 0);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < c_a * TV; i += THREADS) {
+      const long long v = v0 + i % TV;
+      a_s[i] = v < n ? ma[(i / TV) * n + v] : from_f32<T>(0.f);
+    }
   }
 }
 

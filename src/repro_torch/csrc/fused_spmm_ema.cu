@@ -33,8 +33,6 @@
 
 namespace {
 
-constexpr int A_SLICE_BYTES = 32768;  // shared memory for the m_a slice
-
 // two blocks an SM: ptxas then keeps the leg's R x 4 terms in flight in
 // registers (without the bound it held 48 and spilled)
 template <typename T, int R, bool STAGE_A>
@@ -55,25 +53,7 @@ __global__ void __launch_bounds__(rt::THREADS, 2)
   const long long b = blockIdx.y;
   const long long v0 = (long long)tile * rt::TILE + col0;
   const T* ma = m_a + b * c_a * n;
-  if constexpr (STAGE_A) {
-    constexpr int VEC = 16 / (int)sizeof(T);
-    constexpr int PIECES = rt::TV / VEC;
-    if (n % VEC == 0 && (reinterpret_cast<std::uintptr_t>(m_a) & 15) == 0) {
-      for (int i = threadIdx.x; i < c_a * PIECES; i += rt::THREADS) {
-        const int r = i / PIECES, q = i % PIECES;
-        const long long v = v0 + q * VEC;
-        const bool in = v < n;
-        rt::cp_async16(a_s + r * rt::TV + q * VEC, in ? ma + r * n + v : ma,
-                       in ? 16 : 0);
-      }
-      rt::cp_async_commit();
-    } else {
-      for (int i = threadIdx.x; i < c_a * rt::TV; i += rt::THREADS) {
-        const long long v = v0 + i % rt::TV;
-        a_s[i] = v < n ? ma[(i / rt::TV) * n + v] : rt::from_f32<T>(0.f);
-      }
-    }
-  }
+  if constexpr (STAGE_A) rt::stage_slice(a_s, ma, c_a, n, v0);
   rt::bsr_slice_run_accumulate(m_p + b * c_p * n, n, c_p, src_tile, col_ptr,
                                nz_src, tile_ptr[tile], tile_ptr[tile + 1],
                                col0, y);
@@ -151,7 +131,8 @@ int launch(const void* m_a, const void* m_p, const int* ia, const int* ip,
            const int* src_tile, const int* tile_ptr, const int* col_ptr,
            const unsigned char* nz_src, int n_tiles, void* out,
            cudaStream_t stream) {
-  const bool stage_a = (long long)c_a * rt::TV * sizeof(T) <= A_SLICE_BYTES;
+  const bool stage_a =
+      (long long)c_a * rt::TV * sizeof(T) <= rt::A_SLICE_BYTES;
   const bool tall = s >= 4 * 2 * rt::WARPS * 4;
   if (stage_a && tall)
     return launch_as<T, 4, true>(m_a, m_p, ia, ip, s, l, c_a, c_p, n, batch,

@@ -11,9 +11,9 @@ budget (``fused_fits_vmem`` in the JAX package).
 
 :func:`fused_spmm_ema_shared` is the group form: several consumers of ONE
 passive child from one launch of ``csrc/fused_spmm_ema_shared.cu``, whose
-SpMM leg runs once into shared ``y`` over the dense blocks
-(``BsrPrep.blocks``) and whose consumers each apply their split
-combination to it. :func:`fused_group_fits_smem` is its fit model
+SpMM leg walks the same nonzero index once into shared ``y`` and whose
+consumers each apply their split combination to it, m_a's slice staged in
+shared memory. :func:`fused_group_fits_smem` is its fit model
 (``fused_group_fits_vmem`` in the JAX package).
 
 On CPU tensors the wrappers run their plain versions; on CUDA tensors they
@@ -26,7 +26,6 @@ import ctypes
 
 import torch
 
-from repro_torch.device import accum_dtype
 from repro_torch.kernels import _build
 from repro_torch.kernels.ema.ops import ema_plain
 from repro_torch.kernels.spmm.ops import BsrPrep, _check_operands, spmm_acc
@@ -37,15 +36,14 @@ __all__ = ["fused_spmm_ema", "fused_spmm_ema_plain", "fused_fits_smem",
            "fused_group_smem_bytes", "MAX_GROUP", "SMEM_LIMIT"]
 
 # TV destination columns per CUDA block of both kernels, beside y[c_p][TV]
-# in f32 (csrc/bsr_tile.cuh). The fused kernel keeps its m_a slice in at
-# most A_SLICE_BYTES beside y (csrc/fused_spmm_ema.cu); the group kernel's
-# dense walk stages one TILE x TV block slice and one STAGE x TILE table
-# slice, in f32
-TILE, TV, STAGE = 128, 32, 32
+# in f32 (csrc/bsr_tile.cuh). Both keep an m_a slice in at most
+# A_SLICE_BYTES beside y (csrc/bsr_sparse_tile.cuh)
+TILE, TV = 128, 32
 A_SLICE_BYTES = 32_768
 _Y_ITEM = 4
 # warps per CUDA block: the group kernel reduces a row's split partials
-# across them in a WARPS x TV shared buffer
+# across them in a WARPS x TV f32 shared buffer (which holds a chunk of
+# the split table before)
 WARPS = 8
 # dynamic shared memory one block may have on the H100 (227 KB)
 SMEM_LIMIT = 232_448
@@ -67,11 +65,11 @@ def fused_fits_smem(c_p: int, dtype=torch.float32) -> bool:
 
 
 def fused_group_smem_bytes(c_p: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of one shared-passive group launch's CUDA
-    block: ``y[c_p, TV]`` paid once for every consumer, beside the dense
-    walk's block and table slices and the split-reduction buffer."""
-    return (TILE * TV + STAGE * TILE + c_p * TV + WARPS * TV) \
-        * accum_dtype(dtype).itemsize
+    """Most dynamic shared memory one shared-passive group launch's CUDA
+    block takes: the fused kernel's (the largest m_a slice it keeps beside
+    ``y[c_p, TV]``, paid once for every consumer) and the split partials
+    (the same for f32 and bf16 storage)."""
+    return fused_smem_bytes(c_p, dtype) + WARPS * TV * _Y_ITEM
 
 
 def fused_group_fits_smem(n_consumers: int, c_p: int,
@@ -181,6 +179,12 @@ def fused_spmm_ema_shared(m_as, m_p: torch.Tensor, ias, ips,
                              device=m.device) for m, ia in zip(m_as, ias))
     if batch == 0 or n == 0:
         return outs
+    # members whose m_a slice fits A_SLICE_BYTES are staged in shared
+    # memory, the widest of them sizing the slices; the others are read
+    # directly
+    staged = [m.shape[-2] for m in m_as
+              if m.shape[-2] * TV * m.element_size() <= A_SLICE_BYTES]
+    a_rows = max(staged, default=0)
     # one int64 row per consumer: m_a, IA, IP, out, c_a, S, L, 0 (the
     # kernel's GroupMember); kept alive until the launch is enqueued
     desc = torch.tensor([[m.data_ptr(), ia.data_ptr(), ip.data_ptr(),
@@ -190,12 +194,14 @@ def fused_spmm_ema_shared(m_as, m_p: torch.Tensor, ias, ips,
                         dtype=torch.int64).to(m_p.device)
     fn = _build.kernel("rt_fused_spmm_ema_shared", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m_p.device).cuda_stream
     _build.check("fused_spmm_ema_shared", fn(
-        code, m_p.data_ptr(), c_p, n, batch, prep.blocks.data_ptr(),
-        prep.src_tile.data_ptr(), prep.tile_ptr.data_ptr(), prep.n_tiles,
+        code, m_p.data_ptr(), c_p, n, batch, a_rows, len(staged),
+        prep.src_tile.data_ptr(), prep.tile_ptr.data_ptr(),
+        prep.col_ptr.data_ptr(), prep.nz_src.data_ptr(), prep.n_tiles,
         desc.data_ptr(), len(m_as), stream))
     fused_spmm_ema_shared.launches += 1
     return outs

@@ -335,6 +335,67 @@ def test_fused_kernel_edge_cases_deterministically(card, dtype, case):
     _close(got, fused_ops.fused_spmm_ema_plain(m_a, m_p, ia, ip, prep), dtype)
 
 
+# group kernel edge cases: (graph, c_p, [(c_a, S, L) per consumer]). The
+# 64 x 64 mesh has slices without a nonzero in a block (as above); n = 301
+# copies each m_a slice element by element and stores outputs one by one;
+# c_p = 37 is no multiple of a pass of the leg; c_p = 1,552 fills the group
+# fit limit; c_a = 300 in f32 is over the 32 KB m_a slice (read directly,
+# then a staged consumer after it); S = 1 with L = 35 splits its terms
+# unevenly over 16 half-warps, L = 252 and S = 2 with L = 150 take several
+# staged chunks of the split table; S = 3 leaves a row of half-warps idle;
+# "mixed_s" puts an S = 1 and an S >= 16 consumer in one group;
+# "many_staged" stages five or six m_a slices one after another, its
+# c_a = 300 consumer read directly between them in f32, staged in bf16.
+GROUP_CASES = {
+    "skipped_blocks": (lambda: grid_2d(64, 64), 66,
+                       [(45, 1, 66), (12, 3, 10)]),
+    "n_not_vec": (lambda: erdos_renyi(301, 7.0, seed=4), 70,
+                  [(12, 1, 40), (70, 5, 9)]),
+    "c_p_ragged": (lambda: grid_2d(40, 33), 37, [(9, 2, 17), (9, 1, 37)]),
+    "c_p_fit_limit": (lambda: erdos_renyi(300, 7.0, seed=5), 1552,
+                      [(6, 1, 6), (10, 8, 12)]),
+    "wide_m_a": (lambda: grid_2d(40, 33), 45,
+                 [(300, 1, 45), (20, 4, 7), (300, 17, 3)]),
+    "l_ragged": (lambda: grid_2d(40, 33), 35, [(35, 1, 35)] * 3),
+    "long_l": (lambda: grid_2d(40, 33), 252,
+               [(252, 1, 252), (252, 1, 252), (210, 2, 150)]),
+    "mixed_s": (lambda: grid_2d(40, 33), 120, [(210, 1, 120), (45, 40, 6)]),
+    "many_staged": (lambda: grid_2d(40, 33), 252,
+                    [(252, 1, 252)] * 3 + [(300, 2, 9)] + [(252, 1, 252)] * 2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_group_kernel_edge_cases_deterministically(card, dtype, case):
+    build, c_p, cons = GROUP_CASES[case]
+    g = build()
+    prep = spmm_ops.prepare(g, dtype=dtype, device=card)
+    if case == "skipped_blocks":       # a slice without nonzeros in a block
+        col_ptr = prep.col_ptr.cpu().numpy()
+        assert (col_ptr[:, 0:128:32] == col_ptr[:, 32::32]).any()
+    if case == "n_not_vec":
+        assert g.n % 8 != 0 and g.n % 2 != 0
+    assert fused_ops.fused_group_fits_smem(len(cons), c_p, dtype)
+    m_p = _rand((2, c_p, g.n), dtype, card, 2)
+    m_as, ias, ips = [], [], []
+    for i, (c_a, s, l) in enumerate(cons):
+        ia, ip = _rand_splits(s, l, c_a, c_p, card, 10 * i + s)
+        ias.append(ia)
+        ips.append(ip)
+        m_as.append(_rand((2, c_a, g.n), dtype, card, 3 + i))
+    before = fused_ops.fused_spmm_ema_shared.launches
+    got = fused_ops.fused_spmm_ema_shared(m_as, m_p, ias, ips, prep)
+    again = fused_ops.fused_spmm_ema_shared(m_as, m_p, ias, ips, prep)
+    assert fused_ops.fused_spmm_ema_shared.launches == before + 2
+    want = fused_ops.fused_spmm_ema_shared_plain(m_as, m_p, ias, ips, prep)
+    assert len(got) == len(again) == len(want) == len(cons)
+    for gt, ag, wt, (_, s, _) in zip(got, again, want, cons):
+        assert gt.shape == (2, s, g.n)
+        assert torch.equal(gt, ag)                   # bit for bit
+        _close(gt, wt, dtype)
+
+
 # eMA edge cases: (c_a, c_p, S, L, n). The staged path holds c_a + c_p
 # <= 1,816 rows in f32 and 3,632 in bf16: "over_smem" takes the direct path
 # in both dtypes, "staged" the staged one; "census_root" (S = 1) and

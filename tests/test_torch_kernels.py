@@ -205,17 +205,30 @@ def test_shared_group_plain_is_one_spmm_then_one_ema_each():
 
 def test_group_fit_model():
     """The census roots' group (c_p = 252) fits with room to spare; the
-    card's limit is c_p <= 1,552 for a group (the dense walk's 128 x 32
-    block slice and 32 x 128 table slice, y and 8 warps' partials, all
-    f32), and at most MAX_GROUP consumers."""
+    card's limit is c_p <= 1,552 for a group (a 32 KB m_a slice, y and 8
+    warps' split partials, y and the partials in f32), and at most
+    MAX_GROUP consumers."""
     assert fused_ops.fused_group_smem_bytes(252) \
+        == 32 * 1024 + 252 * 32 * 4 + 8 * 32 * 4 \
         == (128 * 32 + 32 * 128 + 252 * 32 + 8 * 32) * 4
     assert fused_ops.fused_group_fits_smem(4, 252)
     assert fused_ops.fused_group_fits_smem(2, 1552, torch.bfloat16)
+    assert fused_ops.fused_group_fits_smem(2, 1552)
     assert not fused_ops.fused_group_fits_smem(2, 1553)
+    assert not fused_ops.fused_group_fits_smem(2, 1553, torch.bfloat16)
     assert fused_ops.fused_group_fits_smem(fused_ops.MAX_GROUP, 252)
     assert not fused_ops.fused_group_fits_smem(fused_ops.MAX_GROUP + 1, 252)
     assert not fused_ops.fused_group_fits_smem(0, 252)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_group_layout_is_the_fused_layout_and_the_partials(dt):
+    """The group kernel's block holds what the fused kernel's does (the m_a
+    slice beside y) plus the 8 warps' split partials, at every c_p the
+    group fit model admits."""
+    for c_p in range(1, 1553):
+        assert fused_ops.fused_group_smem_bytes(c_p, dt) \
+            == fused_ops.fused_smem_bytes(c_p, dt) + 8 * 32 * 4
 
 
 GATHER_GRAPHS = {

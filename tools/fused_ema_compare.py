@@ -1,10 +1,13 @@
-"""Times the eMA and fused SpMM->eMA kernels of whichever ``repro_torch`` is
-importable, on one H100, at the shapes the three paths of ``chip_smoke.py``
-launch them with.
+"""Times the eMA, fused SpMM->eMA and shared-passive group kernels of
+whichever ``repro_torch`` is importable, on one H100, at the shapes the
+three paths of ``chip_smoke.py`` launch them with.
 
 Run it once per tree to compare two versions of the port in one call:
 
     PYTHONPATH=<tree>/src python3 tools/fused_ema_compare.py --label <name>
+
+``--kernels group`` (or ``ema``, ``fused``, comma-separated) times only
+those kernels.
 
 It prints, each line tagged with ``--label``, the mean device time (CUDA
 events over three calls after one untimed call) of:
@@ -17,7 +20,13 @@ events over three calls after one untimed call) of:
   1024)`` at u12 node 5 ``(4, 12, n) x (4, 792, n)``, S = 924, L = 6, and
   the same launch with one output row (its SpMM leg nearly alone), then
   at three census shapes (c_p = 252, S = 1; c_p = 252, S = 10; c_p = 210,
-  S = 45), f32 and bf16.
+  S = 45), f32 and bf16;
+* the group kernel (``fused_ops.fused_spmm_ema_shared``) on the same mesh
+  at the four group shapes of the k=10 census, batch 2, every consumer a
+  template root (S = 1): two consumers of ``(2, 252, n)``, three and two
+  of ``(2, 210, n)``, two of ``(2, 120, n)``, f32 and bf16; in f32 also
+  one consumer of ``(2, 210, n)``, and one with a single row and term
+  (its SpMM leg nearly alone).
 
 Each result at batch 4 or less is checked against the plain version
 (``equal``: bit for bit in f32, within 1e-2 relative in bf16). Tables are
@@ -57,7 +66,10 @@ def _same(got, want, dtype) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--kernels", default="ema,fused,group",
+                    help="comma-separated subset of ema, fused, group")
     args = ap.parse_args()
+    kinds = set(args.kernels.split(","))
     import torch
     if not torch.cuda.is_available():
         print("fused_ema_compare: no CUDA device", file=sys.stderr)
@@ -89,7 +101,7 @@ def main() -> int:
               flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    for b, k, t, t_a, dt, tag in (
+    for b, k, t, t_a, dt, tag in () if "ema" not in kinds else (
             (4, 12, 7, 6, f32, "u12 node 6"), (4, 12, 7, 6, bf16, "u12 node 6"),
             (4, 12, 7, 1, f32, "u12 node 5 shape"),
             (7, 12, 7, 6, f32, "path B node 6"),
@@ -102,7 +114,7 @@ def main() -> int:
         line("ema", tag, dt, m_a, m_p, ia, ms, ok)
         del m_a, m_p
         torch.cuda.empty_cache()
-    for dt in (f32, bf16):
+    for dt in (f32, bf16) if "fused" in kinds else ():
         prep = spmm_ops.prepare(g, dtype=dt, device=dev)
         for b, k, t, t_a, tag in ((4, 12, 6, 1, "u12 node 5"),
                                   (2, 10, 10, 5, "census"),
@@ -122,6 +134,49 @@ def main() -> int:
                 line("fused", "u12 node 5, one output row", dt, m_a, m_p,
                      one_a, ms, None)
             del m_a, m_p
+            torch.cuda.empty_cache()
+        del prep
+        torch.cuda.empty_cache()
+    for dt in (f32, bf16) if "group" in kinds else ():
+        prep = spmm_ops.prepare(g, dtype=dt, device=dev)
+        # (consumers, t_a) of the census's groups: every member is a root
+        # (t = 10) over a passive of C(10, 10 - t_a) colour sets
+        for cons, t_a in ((2, 5), (3, 4), (2, 4), (2, 3)):
+            ia, ip = (torch.as_tensor(a, dtype=torch.int32, device=dev)
+                      for a in split_tables(10, 10, t_a))
+            m_p = torch.empty((2, math.comb(10, 10 - t_a), n), dtype=dt,
+                              device=dev).random_(0, 4, generator=gen)
+            m_as = [torch.empty((2, math.comb(10, t_a), n), dtype=dt,
+                                device=dev).random_(0, 4, generator=gen)
+                    for _ in range(cons)]
+            ias, ips = [ia] * cons, [ip] * cons
+            got = fused_ops.fused_spmm_ema_shared(m_as, m_p, ias, ips, prep)
+            want = fused_ops.fused_spmm_ema_shared_plain(m_as, m_p, ias,
+                                                         ips, prep)
+            ok = all(_same(a, w, dt) for a, w in zip(got, want))
+            del got, want
+            torch.cuda.empty_cache()
+            ms = _time_ms(lambda: fused_ops.fused_spmm_ema_shared(
+                m_as, m_p, ias, ips, prep))
+            line("group", f"census {cons} consumers", dt, m_as[0], m_p, ia,
+                 ms, ok)
+            if (cons, t_a, dt) == (3, 4, f32):
+                # the same passive with one consumer, then with one of a
+                # single row and term (the leg nearly alone)
+                one = [m_as[0]], [ia], [ip]
+                zero = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+                lone = [m_as[0][:, :1].contiguous()], [zero], [zero]
+                for tag, (ms_, is_, ps_) in (("census 1 consumer", one),
+                                             ("leg alone", lone)):
+                    ok = all(_same(a, w, dt) for a, w in zip(
+                        fused_ops.fused_spmm_ema_shared(ms_, m_p, is_, ps_,
+                                                        prep),
+                        fused_ops.fused_spmm_ema_shared_plain(ms_, m_p, is_,
+                                                              ps_, prep)))
+                    ms = _time_ms(lambda: fused_ops.fused_spmm_ema_shared(
+                        ms_, m_p, is_, ps_, prep))
+                    line("group", tag, dt, ms_[0], m_p, is_[0], ms, ok)
+            del m_p, m_as
             torch.cuda.empty_cache()
         del prep
         torch.cuda.empty_cache()
