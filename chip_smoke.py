@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives three paths of the
+``src/repro_torch/csrc``) and nothing of JAX. It drives six paths of the
 port, each with every kernel's launch counter set to 0 just before it and
 read just after:
 
@@ -15,7 +15,17 @@ read just after:
 * **u12 on a social graph (path B):** ``CountingEngine(rmat(20), "u12",
   plan="optimized", spmm_method="gather", fuse_spmm_ema=False,
   memory_budget_bytes=48 GiB).estimate(8)`` — gather SpMM and eMA, with no
-  BSR operand built.
+  BSR operand built;
+* **u13 chunked on the mesh:** ``api.count`` (``compile_query(...).run()``)
+  of ``u13`` on ``grid_2d(1024, 1024)`` at a 16 GiB budget, 4 colorings:
+  the memory model chunks node 5's 1,716 passive colour sets into single
+  rows — one BSR SpMM and one chunk-accumulate launch a chunk — beside
+  the same colorings unchunked (24 GiB, batch 1);
+* **the scrambled mesh:** ``grid_2d(1024, 1024)`` relabelled at random, u12
+  over 8 colorings (a) through the gather SpMM as it is, (b) the same with
+  ``reorder="rcm"``, (c) ``api.count(..., reorder="rcm")`` on the default
+  BSR and fused path, which cannot build its blocks unreordered;
+* **path B relabelled:** path B's engine with ``reorder="degree"``.
 
 In order it prints:
 
@@ -31,18 +41,22 @@ In order it prints:
    printed. After paths A and B, every eMA, fused and shared-passive
    group shape each launches is timed at its batch beside its bound
    (``[sweep]``), and the costliest of each kernel is held against its
-   plain version;
+   plain version. The chunk-accumulate kernel is held against its plain
+   version at u13 node 5's chunking (f32, bf16) and at 4-row chunks;
 4. whole-path parity, the card's engine against the CPU engine (plain
    versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
-   ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; u12
-   with ``spmm_method="gather"`` on ``rmat(12)``;
-5. the three full-size runs, each with its kernels' launches (all must be
-   > 0), peak device memory and seconds per coloring;
+   ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; all
+   106 estimates of the k=10 census on ``grid_2d(64, 64)``, 2 colorings;
+   u12 with ``spmm_method="gather"`` on ``rmat(12)``;
+5. the six full-size runs, each with its kernels' launches (all must be
+   > 0), peak device memory and seconds per coloring; the chunked run's
+   peak beside the model's and the unchunked run's, and the reordered runs'
+   occupied blocks and host seconds;
 6. where the time goes: one batch of each full-size path under
    ``torch.profiler``, device time and launches by kernel, the device's
    idle share, the host's CUDA calls and the allocator's retries;
-7. one JSON line with every kernel's numbers, then the last line
-   ``{"ok": true, "device": {...}}``.
+7. the script's total seconds, one JSON line with every kernel's numbers,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line; without a card
 (or without the package beside this file) it exits non-zero at once.
@@ -456,6 +470,291 @@ def phase_gather_kernel(g, batch: int) -> dict:
     return results
 
 
+def phase_chunk_kernel(g) -> dict:
+    """The chunk-accumulate kernel against its plain version at u13 node
+    5's chunking: c_a = 13, C(13, 7) = 1,716 passive rows in single-row
+    chunks (6 pairs a chunk), S = 1,287, L = 8, batch 1, in f32 and bf16;
+    and in f32 at 4-row chunks (429), where an output row takes several
+    pairs of one chunk. The neighbour sums are a random (1, 1716, n) table
+    sliced as the chunked eMA slices it, so a case is one coloring's
+    accumulate launches without their SpMMs. The bound counts what each
+    launch must move: its touched output rows read and written, its
+    distinct m_a and y_c rows read once, its pair index."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.colorsets import split_tables
+    from repro_torch.kernels.ema import ops as ema_ops
+
+    dev = torch.device("cuda")
+    n = g.n
+    k, t, t_a = 13, 8, 1
+    c_a, c_p = math.comb(k, t_a), math.comb(k, t - t_a)
+    ia, ip = split_tables(k, t, t_a)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    results = {}
+    for dt, q in ((torch.float32, c_p), (torch.bfloat16, c_p),
+                  (torch.float32, c_p // 4)):
+        pack = ema_ops.pack_chunked_splits(ia, ip, c_p, q)
+        walk = ema_ops.chunk_walk(pack, dev)
+        r, s_ = pack.chunk_rows, pack.n_out_rows
+        m_a = torch.randint(0, 4, (1, c_a, n), generator=gen,
+                            device=dev).to(dt)
+        y = torch.randint(0, 4, (1, c_p, n), generator=gen,
+                          device=dev).to(dt)
+        outs = [torch.zeros((1, s_, n), dtype=dt, device=dev)
+                for _ in range(2)]
+
+        def run(fn, out):
+            for qq in range(q):
+                fn(out, m_a, y[:, qq * r:(qq + 1) * r], walk, qq)
+            return out
+
+        pair_a, pair_p = walk.pair_a.cpu().numpy(), walk.pair_p.cpu().numpy()
+        rows_moved = 0
+        for qq in range(q):
+            e0, e1 = walk.entry_ptr[qq], walk.entry_ptr[qq + 1]
+            p0, p1 = walk.pair_ptr[e0], walk.pair_ptr[e1]
+            rows_moved += (2 * (e1 - e0) + len(np.unique(pair_a[p0:p1]))
+                           + len(np.unique(pair_p[p0:p1])))
+        n_pairs = int(walk.pair_ptr[-1])
+        per_entry = int(np.diff(walk.pair_ptr).max())
+        case = dict(
+            name="ema_chunk_acc",
+            shape=f"m_a=(1,{c_a},{n}) y_c=(1,{r},{n}) x{q} chunks S={s_} "
+                  f"pairs={n_pairs} (<= {per_entry} an output row a chunk)",
+            kernel=lambda: run(ema_ops.ema_chunk_acc, outs[0]),
+            plain=lambda: run(ema_ops.ema_chunk_acc_plain, outs[1]),
+            bytes=rows_moved * n * dt.itemsize
+            + 4 * (2 * walk.rows.numel() + 2 * n_pairs),
+            flops=2 * n_pairs * n, library=None)
+        tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+        row = _measure(case, tol, 3)
+        row.update(shape=case["shape"], chunks=q)
+        results[(dt, q)] = row
+        del case, outs, m_a, y, walk
+        torch.cuda.empty_cache()
+    return results
+
+
+def _bsr_bytes(prep) -> int:
+    """Device bytes of a BSR operand: the dense blocks and every index."""
+    return sum(t.numel() * t.element_size()
+               for t in (prep.blocks, prep.src_tile, prep.dst_tile,
+                         prep.tile_ptr, prep.col_ptr, prep.nz_src))
+
+
+def phase_chunked_full(g, chunk_row: dict) -> dict:
+    """u13 on grid_2d(1024, 1024) at a 16 GiB budget through the user's
+    entry point, 4 colorings: node 5 runs chunked (1,716 single-row
+    chunks), node 7 fused. Then the same colorings unchunked (24 GiB,
+    batch 1). Returns the chunked run's launches."""
+    import torch
+
+    from repro_torch import api
+
+    def run(budget):
+        _reset_counts()
+        t0 = time.perf_counter()
+        q = api.compile_query(g, api.CountQuery(
+            templates="u13", max_iters=4, round_size=4, plan="optimized",
+            seed=0, memory_budget_bytes=budget, batch_size=1))
+        built = time.perf_counter() - t0
+        res = q.run()[0]
+        _sync()
+        return (q.engine, res, built, _read_counts(),
+                torch.cuda.max_memory_allocated())
+
+    eng, res, built, launches, peak = run(16 * GIB)
+    chunks = eng.schedule.chunk_map
+    model = eng.peak_table_bytes
+    operand = _bsr_bytes(eng._spmm_prep)
+    secs = res.seconds / res.iterations
+    adj = 4 * (g.n + 1 + g.m)
+    spmm_bound = chunks.get(5, 0) * (adj + 2 * g.n * 4) / HBM_BYTES_PER_S
+    print(f"[full] u13 chunked on grid_2d(1024,1024) at 16 GiB: chunk_map="
+          f"{chunks} fused={eng.schedule.fused} batch={eng.batch_size} "
+          f"fits={eng.exec_choice.fits} estimate={res.estimate!r} "
+          f"iterations={res.iterations} s_per_coloring={secs:.4f} (count "
+          f"loop {res.seconds:.3f} s, engine build {built:.3f} s) "
+          f"launches={launches} max_memory_allocated={peak} ({peak / GIB:.2f}"
+          f" GiB) modeled tables={model} ({model / GIB:.2f} GiB) + operand "
+          f"{operand}", flush=True)
+    print(f"[full]   node 5 a coloring at the bound: chunk-accumulate "
+          f"{chunk_row['bound_ms']:.3f} ms (measured alone "
+          f"{chunk_row['ms']:.3f}), 1,716 one-row SpMMs "
+          f"{spmm_bound * 1e3:.3f} ms", flush=True)
+    if chunks != {5: 1716} or not eng.exec_choice.fits:
+        raise AssertionError(f"u13 at 16 GiB chunked as {chunks}")
+    if not (math.isfinite(res.estimate) and res.estimate > 0
+            and res.iterations == 4):
+        raise AssertionError(f"bad estimate {res}")
+    path = ("ema_chunk_acc", "spmm_bsr", "fused_spmm_ema", "ema")
+    if min(launches[k] for k in path) == 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    if peak > model + operand:
+        raise AssertionError(f"chunked peak {peak} exceeds the modeled "
+                             f"tables {model} plus the operand {operand}")
+    est, m_chunked = res.estimate, eng.exec_choice.peak_bytes_per_coloring
+    del eng, res
+    torch.cuda.empty_cache()
+    eng2, res2, built2, launches2, peak2 = run(24 * GIB)
+    model2 = eng2.peak_table_bytes
+    print(f"[full] u13 unchunked on grid_2d(1024,1024) at 24 GiB: chunk_map="
+          f"{eng2.schedule.chunk_map} batch={eng2.batch_size} estimate="
+          f"{res2.estimate!r} s_per_coloring="
+          f"{res2.seconds / res2.iterations:.4f} (engine build "
+          f"{built2:.3f} s) launches={launches2} max_memory_allocated="
+          f"{peak2} ({peak2 / GIB:.2f} GiB) modeled tables={model2} "
+          f"({model2 / GIB:.2f} GiB)", flush=True)
+    print(f"[full]   peaks, unchunked - chunked: measured {peak2 - peak} "
+          f"({(peak2 - peak) / GIB:.2f} GiB), model "
+          f"{eng2.exec_choice.peak_bytes_per_coloring - m_chunked} "
+          f"({(eng2.exec_choice.peak_bytes_per_coloring - m_chunked) / GIB:.2f}"
+          f" GiB); seconds per coloring chunked / unchunked "
+          f"{secs / (res2.seconds / res2.iterations):.2f}", flush=True)
+    if eng2.schedule.chunk_map or eng2.batch_size != 1:
+        raise AssertionError("the 24 GiB engine chunked or batched")
+    if not math.isclose(est, res2.estimate, rel_tol=PATH_RTOL):
+        raise AssertionError(f"chunked estimate {est} != unchunked "
+                             f"{res2.estimate}")
+    del eng2, res2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_reorder_mesh(g) -> dict:
+    """u12 on the mesh relabelled by a seeded random permutation, 8
+    colorings: (a) through the gather SpMM as it is; (b) the same with
+    reorder="rcm"; (c) api.count's default BSR and fused path with
+    reorder="rcm" (unreordered, its dense blocks would not fit the card).
+    Returns the launches of (a), (b), (c)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.graph.reorder import apply_order
+    from repro_torch.obs import metrics
+
+    t0 = time.perf_counter()
+    gs = apply_order(g, np.random.default_rng(3).permutation(g.n))
+    relabel_s = time.perf_counter() - t0
+    before = gs.bsr_block_stats()
+    print(f"[reorder] scrambled grid_2d(1024,1024): relabelled in "
+          f"{relabel_s:.2f} s; occupied 128x128 blocks "
+          f"{before['occupied_blocks']} ({before['nnz_per_block']:.2f} "
+          f"nonzeros a block; dense f32 blocks would take "
+          f"{before['occupied_blocks'] * 128 * 128 * 4} bytes)", flush=True)
+    kw = dict(plan="optimized", spmm_method="gather", fuse_spmm_ema=False,
+              memory_budget_bytes=CENSUS_BUDGET)
+    out, estimates = {}, {}
+    reg = metrics.set_registry(metrics.MetricsRegistry())
+    for label, reorder in (("a", None), ("b", "rcm")):
+        t0 = time.perf_counter()
+        eng = CountingEngine(gs, "u12", reorder=reorder, **kw)
+        built = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        est = eng.estimate(8)
+        _sync()
+        secs = time.perf_counter() - t0
+        out[label] = _read_counts()
+        estimates[label] = est["count"]
+        print(f"[full] scrambled mesh ({label}) u12 gather reorder={reorder}:"
+              f" count={est['count']!r} batch={eng.batch_size} "
+              f"s_per_coloring={secs / 8:.4f} (engine build {built:.3f} s, "
+              f"host reorder {eng.reorder_seconds}) launches={out[label]} "
+              f"max_memory_allocated={torch.cuda.max_memory_allocated()}",
+              flush=True)
+        if not out[label]["spmm_gather"] or not out[label]["ema"] \
+                or out[label]["spmm_bsr"]:
+            raise AssertionError(f"({label})'s launches are off: "
+                                 f"{out[label]}")
+        del eng
+        torch.cuda.empty_cache()
+    _reset_counts()
+    t0 = time.perf_counter()
+    q = api.compile_query(gs, api.CountQuery(
+        templates="u12", max_iters=8, plan="optimized", seed=0,
+        memory_budget_bytes=32 * GIB, reorder="rcm"))
+    built = time.perf_counter() - t0
+    res = q.run()[0]
+    _sync()
+    out["c"] = _read_counts()
+    estimates["c"] = res.estimate
+    gauges = reg.snapshot()["gauges"]
+    after = gauges['reorder_bsr_occupied_blocks{reorder="rcm",stage="after"}']
+    metrics.set_registry(metrics.MetricsRegistry())
+    print(f"[full] scrambled mesh (c) api.count u12 reorder='rcm' BSR+fused:"
+          f" estimate={res.estimate!r} batch={q.engine.batch_size} "
+          f"s_per_coloring={res.seconds / res.iterations:.4f} (engine build "
+          f"{built:.3f} s, host reorder {q.engine.reorder_seconds}) "
+          f"launches={out['c']} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+    print(f"[reorder]   occupied blocks {before['occupied_blocks']} -> "
+          f"{int(after)} after rcm; estimates {estimates}", flush=True)
+    for label in ("b", "c"):
+        if not math.isclose(estimates[label], estimates["a"],
+                            rel_tol=PATH_RTOL):
+            raise AssertionError(f"scrambled mesh estimates disagree: "
+                                 f"{estimates}")
+    if min(out["c"][k] for k in ("spmm_bsr", "ema", "fused_spmm_ema")) == 0:
+        raise AssertionError(f"(c)'s launches are off: {out['c']}")
+    del q
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_degree_rmat(g, est_b: float) -> dict:
+    """Path B with reorder="degree": the same engine, estimate and
+    colorings, the graph relabelled by descending degree. Times the gather
+    SpMM at the leaf (the path's batch of 12-row tables) on both operands.
+    Returns the launches."""
+    import torch
+
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.graph.coloring import batch_colorings
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    t0 = time.perf_counter()
+    eng = CountingEngine(g, "u12", plan="optimized", spmm_method="gather",
+                         fuse_spmm_ema=False,
+                         memory_budget_bytes=CENSUS_BUDGET, reorder="degree")
+    built = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    est = eng.estimate(8)
+    _sync()
+    secs = time.perf_counter() - t0
+    launches = _read_counts()
+    b = eng.batch_size
+    cols = batch_colorings(0, range(b), g.n, 12, device="cuda")
+    leaf = (torch.arange(12, device="cuda")[:, None]
+            == cols[:, None, :]).to(torch.float32)
+    times = {}
+    for label, prep in (("degree", eng._spmm_prep),
+                        ("as is", spmm_ops.prepare(g, "gather"))):
+        spmm_ops.spmm(leaf, prep)
+        times[label] = _time_ms(lambda: spmm_ops.spmm(leaf, prep), 5)
+    print(f"[full] u12 gather on rmat(20) reorder='degree': count="
+          f"{est['count']!r} batch={b} s_per_coloring={secs / 8:.4f} (engine "
+          f"build {built:.3f} s, host reorder {eng.reorder_seconds}) "
+          f"launches={launches} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()}; gather SpMM at the leaf "
+          f"({b},12,{g.n}) ms: {times}", flush=True)
+    if not math.isclose(est["count"], est_b, rel_tol=PATH_RTOL):
+        raise AssertionError(f"degree-reordered path B {est['count']} != "
+                             f"path B {est_b}")
+    if not launches["spmm_gather"] or not launches["ema"]:
+        raise AssertionError(f"launches are off: {launches}")
+    del eng, leaf
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_shapes(eng) -> dict:
     """The eMA, fused and group launches one batch of an engine makes, by
     shape: every non-leaf node outside a shared-passive group launches an
@@ -652,6 +951,30 @@ def phase_parity_census() -> None:
           f"{f_card.shape} card == CPU", flush=True)
 
 
+def phase_parity_census10() -> None:
+    """All 106 estimates of the k=10 census on grid_2d(64, 64), 2
+    colorings: card against CPU."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.graph.generators import grid_2d
+
+    g = grid_2d(64, 64)
+    specs = census_specs(10)
+    kw = dict(plan="dedup", max_iters=2, round_size=2, seed=0)
+    got = np.array([r.estimate for r in api.count_many(
+        g, specs, device="cuda", **kw)])
+    want = np.array([r.estimate for r in api.count_many(
+        g, specs, device="cpu", **kw)])
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    print(f"[parity] k=10 census ({len(specs)} trees) grid_2d(64,64), 2 "
+          f"colorings: largest relative error card vs CPU "
+          f"{rel[want != 0].max() if (want != 0).any() else 0.0:.3e} "
+          f"(rtol {PATH_RTOL:g}); {int((want > 0).sum())} nonzero, zeros "
+          f"equal: {bool(np.array_equal(got == 0, want == 0))}", flush=True)
+    np.testing.assert_allclose(got, want, rtol=PATH_RTOL, atol=0)
+
+
 def phase_parity_gather() -> None:
     """u12 with spmm_method="gather" on rmat(12): card against CPU."""
     import torch
@@ -682,6 +1005,7 @@ def _counters() -> dict:
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.spmm import ops as spmm_ops
     return {"spmm_bsr": spmm_ops.spmm, "ema": ema_ops.ema,
+            "ema_chunk_acc": ema_ops.ema_chunk_acc,
             "fused_spmm_ema": fused_ops.fused_spmm_ema,
             "fused_spmm_ema_shared": fused_ops.fused_spmm_ema_shared,
             "spmm_gather": spmm_ops.spmm_gather}
@@ -822,9 +1146,10 @@ def layout_sizes(g, tile: int = 128, chunk: int = 512) -> dict:
             "padded_chunk_bytes": chunks * chunk * 12}
 
 
-def phase_gather_full(g) -> tuple[dict, int, dict]:
+def phase_gather_full(g) -> tuple[dict, int, dict, float]:
     """Path B: u12 on rmat(20) through the gather SpMM, 8 colorings.
-    Returns (launches, batch size, eMA launches a batch by shape)."""
+    Returns (launches, batch size, eMA launches a batch by shape,
+    estimate)."""
     import torch
 
     from repro_torch.core.engines import CountingEngine
@@ -862,7 +1187,7 @@ def phase_gather_full(g) -> tuple[dict, int, dict]:
     if launches["spmm_bsr"] or launches["fused_spmm_ema"] \
             or not launches["spmm_gather"] or not launches["ema"]:
         raise AssertionError(f"path B's launches are off: {launches}")
-    return launches, eng.batch_size, kernel_shapes(eng)
+    return launches, eng.batch_size, kernel_shapes(eng), est["count"]
 
 
 def _profile(label: str, fn) -> None:
@@ -946,6 +1271,12 @@ def phase_profile(g, g_rmat) -> None:
              lambda: eng.count_iterations_batch(range(b)))
     del eng
     torch.cuda.empty_cache()
+    q = api.compile_query(g, api.CountQuery(
+        templates="u13", max_iters=1, round_size=1, batch_size=1,
+        memory_budget_bytes=16 * GIB))
+    _profile("u13 chunked grid_2d(1024,1024) one coloring", q.run)
+    del q
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -964,6 +1295,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays IEEE
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     print(_device_line(), flush=True)
     from repro_torch.graph.generators import grid_2d, rmat
 
@@ -972,8 +1304,11 @@ def main() -> int:
     g = grid_2d(1024, 1024)
     kern = phase_kernels(g)
     _sync()
+    chunk = phase_chunk_kernel(g)
+    _sync()
     phase_parity()
     phase_parity_census()
+    phase_parity_census10()
     phase_parity_gather()
     _sync()
     by_path = {"u12_grid": phase_full(g)}
@@ -993,12 +1328,22 @@ def main() -> int:
     print(f"[build] rmat(20) on the host: n={g_rmat.n} m={g_rmat.m} in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed loops); "
           f"other operands would hold {layout_sizes(g_rmat)}", flush=True)
-    by_path["u12_rmat20"], batch_b, shapes_b = phase_gather_full(g_rmat)
+    by_path["u12_rmat20"], batch_b, shapes_b, est_b = \
+        phase_gather_full(g_rmat)
+    _sync()
+    by_path["u12_rmat20_degree"] = phase_degree_rmat(g_rmat, est_b)
     _sync()
     gather = phase_gather_kernel(g_rmat, batch_b)
     _sync()
     sweeps["u12_rmat20"] = phase_shape_sweep("path B", g_rmat, 12, batch_b,
                                              shapes_b)
+    _sync()
+    by_path["u13_chunked_grid"] = phase_chunked_full(
+        g, chunk[(torch.float32, 1716)])
+    _sync()
+    mesh = phase_reorder_mesh(g)
+    for label, counts in mesh.items():
+        by_path[f"u12_scrambled_{label}"] = counts
     _sync()
     phase_profile(g, g_rmat)
     _sync()
@@ -1022,6 +1367,11 @@ def main() -> int:
         "spmm_gather": ("u12_rmat20", gather[(torch.float32, 12)],
                         "src/repro_torch/csrc/spmm_gather.cu",
                         "src/repro/kernels/spmm/pallas_gather.py:87"),
+        # no Pallas kernel: the reference's chunked eMA is XLA
+        # scatter-adds (ema_chunked's pair loop)
+        "ema_chunk_acc": ("u13_chunked_grid", chunk[(torch.float32, 1716)],
+                          "src/repro_torch/csrc/ema_chunk.cu",
+                          "src/repro/kernels/ema/ops.py:193"),
     }
     rows = []
     for name, (path, m, source, rep) in rows_of.items():
@@ -1045,6 +1395,8 @@ def main() -> int:
             rows[-1]["at_paths"] = at
         if rows[-1]["launches"] == 0:
             raise AssertionError(f"{name} never launched on its path")
+    print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,17 +49,23 @@ class CountQuery:
     """N templates + a precision contract + a budget. The contract is the
     reference's: ``rel_stderr`` adaptive target and/or ``max_iters`` cap,
     ``min_iters`` early-stop guard; ``memory_budget_bytes`` bounds each
-    fused engine's device tables through the executor's memory model."""
+    fused engine's device tables through the executor's memory model
+    (colorset chunking where one coloring does not fit); ``reorder``
+    ("rcm" or "degree") permutes the graph once per engine for locality,
+    with results mapped back to the caller's vertex ids. ``engine`` is
+    the reference's field; the port runs ``"pgbsc"``."""
 
     templates: tuple[TemplateSpec, ...]
     rel_stderr: float | None = None
     max_iters: int | None = None
     min_iters: int = 4
     seed: int = 0
+    engine: str = "pgbsc"
     plan: str = "optimized"
     round_size: int = 8
     memory_budget_bytes: int | None = None
     batch_size: int | None = None
+    reorder: str | None = None
 
     def __post_init__(self):
         tpls = self.templates
@@ -101,9 +107,11 @@ class CompiledQuery:
         by_k: dict[int, list[int]] = {}
         for i, spec in enumerate(query.templates):
             by_k.setdefault(spec.k, []).append(i)
-        kw = {"plan": query.plan, "device": device}
+        kw = {"engine": query.engine, "plan": query.plan, "device": device}
         if query.memory_budget_bytes is not None:
             kw["memory_budget_bytes"] = int(query.memory_budget_bytes)
+        if query.reorder:
+            kw["reorder"] = query.reorder
         if dtype is not None:
             kw["dtype"] = dtype
         self.groups: list[tuple[list[int], CountingEngine]] = []
@@ -177,10 +185,11 @@ def compile_query(g, query: CountQuery, *, dtype=None,
 
 def count_many(g, templates, *, rel_stderr: float | None = None,
                max_iters: int | None = None, min_iters: int = 4,
-               seed: int = 0, plan: str = "optimized", round_size: int = 8,
+               seed: int = 0, engine: str = "pgbsc",
+               plan: str = "optimized", round_size: int = 8,
                memory_budget_bytes: int | None = None,
-               batch_size: int | None = None, dtype=None,
-               device=None) -> list[RequestResult]:
+               batch_size: int | None = None, reorder: str | None = None,
+               dtype=None, device=None) -> list[RequestResult]:
     """Estimate counts for N templates with cross-template subplan sharing.
 
     Accepts any mix of registry names, :class:`TemplateSpec`, TreeTemplate
@@ -188,7 +197,8 @@ def count_many(g, templates, *, rel_stderr: float | None = None,
     order. Same-k templates run on ONE fused plan; each template's samples
     still come from exactly the colorings a solo :func:`count` with the
     same seed would draw. Runs on CUDA unless ``device="cpu"``; ``dtype``
-    is the table storage dtype (f32 by default, or bf16).
+    is the table storage dtype (f32 by default, or bf16); ``reorder``
+    relabels the graph once per engine (:class:`CountQuery`).
     """
     if rel_stderr is None and max_iters is None:
         max_iters = DEFAULT_MAX_ITERS
@@ -196,9 +206,10 @@ def count_many(g, templates, *, rel_stderr: float | None = None,
         templates = (templates,)      # an iterable of characters
     query = CountQuery(
         templates=tuple(templates), rel_stderr=rel_stderr,
-        max_iters=max_iters, min_iters=min_iters, seed=seed, plan=plan,
-        round_size=round_size, memory_budget_bytes=memory_budget_bytes,
-        batch_size=batch_size)
+        max_iters=max_iters, min_iters=min_iters, seed=seed, engine=engine,
+        plan=plan, round_size=round_size,
+        memory_budget_bytes=memory_budget_bytes, batch_size=batch_size,
+        reorder=reorder)
     return compile_query(g, query, dtype=dtype, device=device).run()
 
 

@@ -8,17 +8,22 @@ consumer, or one shared-passive group launch where several template roots
 share it, and the card's shared-memory fit model admits it. The walk is
 the shared :class:`~repro_torch.core.executor.PlanExecutor`; the kernels
 are ``kernels/{spmm,ema,fused}``, which launch CUDA on the card and run
-their plain PyTorch versions on the CPU.
+their plain PyTorch versions on the CPU. When one coloring's tables do not
+fit the memory budget, the executor's model chunks the passive colour sets
+of the nodes at the peak, and those nodes run the chunked eMA (one SpMM and
+one chunk-accumulate launch a chunk). ``reorder="rcm" | "degree"`` walks
+the plan on a relabelled graph, with colorings and root tables mapped at
+the engine's boundary.
 
 A port of the JAX package's ``core/engines.py`` for ``engine="pgbsc"``,
 one template or a fused bundle of same-k templates. The FASCIA/PFASCIA
-engines, the ``segment``/``ell``/``dense`` SpMM backends, vertex
-reordering and colorset chunking are not ported yet and raise
-``NotImplementedError`` (see ``ROADMAP.md``).
+engines and the ``segment``/``ell``/``dense`` SpMM backends are not
+ported yet and raise ``NotImplementedError`` (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import time
 from math import comb
 
 import numpy as np
@@ -30,6 +35,7 @@ from repro_torch.core.templates import (ExecutionPlan, as_template,
                                         compile_fused_plan)
 from repro_torch.device import CARD_DTYPES, accum_dtype, resolve_device
 from repro_torch.graph.coloring import batch_colorings
+from repro_torch.graph.reorder import ORDERINGS, apply_order, inverse_order
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.ema import ops as ema_ops
 from repro_torch.kernels.fused import ops as fused_ops
@@ -63,9 +69,14 @@ class CountingEngine:
 
     ``memory_budget_bytes`` becomes the coloring batch size through the
     executor's memory model (fused nodes are charged no neighbor-sum
-    table); ``batch_size`` overrides the derived batch. ``device=None``
-    runs on CUDA and raises without a card; ``device="cpu"`` runs the
-    kernels' plain versions.
+    table); when even one coloring exceeds it, the model chunks passive
+    colour sets (:attr:`schedule` ``.chunk_map``), and where even
+    single-row chunks do not fit it runs its best effort at batch 1 with
+    ``exec_choice.fits`` False, as the JAX package does. ``batch_size``
+    overrides the derived batch. ``reorder`` ("rcm" or "degree") permutes
+    the graph once here; callers pass colorings and read root tables in
+    their own vertex ids. ``device=None`` runs on CUDA and raises without
+    a card; ``device="cpu"`` runs the kernels' plain versions.
     """
 
     def __init__(self, g: Graph, template, engine: str = "pgbsc",
@@ -80,8 +91,9 @@ class CountingEngine:
             raise NotImplementedError(
                 f"SpMM backend {spmm_method!r} is {_TODO}; the port's "
                 f"backends are {spmm_ops.METHODS}")
-        if reorder:
-            raise NotImplementedError(f"reorder={reorder!r} is {_TODO}")
+        if reorder not in (None, "", *ORDERINGS):
+            raise ValueError(f"unknown reorder {reorder!r}; "
+                             f"choose from {sorted(ORDERINGS)} or None")
         if isinstance(template, (list, tuple)):
             if not template:
                 raise ValueError("engine needs at least one template")
@@ -97,6 +109,30 @@ class CountingEngine:
         if self.device.type == "cuda" and dtype not in CARD_DTYPES:
             raise TypeError(f"the card runs {sorted(map(str, CARD_DTYPES))} "
                             f"tables, got {dtype}")
+        # Vertex reordering: permute the graph ONCE here; the plan walk
+        # runs in the permuted vertex space and only the engine boundary
+        # permutes (colorings in, root tables out: _run). The occupied
+        # blocks before and after are published as gauges.
+        self.reorder = reorder or None
+        self._order = None
+        # host seconds of the ordering and the relabelling (set-up time)
+        self.reorder_seconds: dict[str, float] = {}
+        if self.reorder:
+            before = g.bsr_block_stats()
+            t0 = time.perf_counter()
+            self._order = ORDERINGS[self.reorder](g)
+            t1 = time.perf_counter()
+            g = apply_order(g, self._order)
+            self.reorder_seconds = {"order": t1 - t0,
+                                    "apply": time.perf_counter() - t1}
+            after = g.bsr_block_stats()
+            for stage, stats in (("before", before), ("after", after)):
+                _metrics.gauge("reorder_bsr_occupied_blocks",
+                               reorder=self.reorder, stage=stage
+                               ).set(stats["occupied_blocks"])
+                _metrics.gauge("reorder_bsr_block_density",
+                               reorder=self.reorder, stage=stage
+                               ).set(stats["block_density"])
         self.g = g
         self.templates = templates
         self.template = templates[0]
@@ -129,8 +165,9 @@ class CountingEngine:
         fused_nodes, fused_groups = (self._fused_candidates()
                                      if self.fuse_spmm_ema else ((), ()))
 
-        # budget -> (batch size, liveness schedule); the memory model reads
-        # only the itemsize, so it gets a numpy float of the same width.
+        # budget -> (batch size, liveness schedule, chunking); the memory
+        # model reads only the itemsize, so it gets a numpy float of the
+        # same width. An explicit batch_size overrides only the batch.
         # Every fused root is a kept output (never freed by the walk).
         keep = tuple(i for i in self.roots if i != self.plan.n_nodes - 1)
         self.exec_choice = pexec.pick_execution(
@@ -138,12 +175,6 @@ class CountingEngine:
             dtype=np.dtype(f"f{dtype.itemsize}"), keep=keep,
             fused=fused_nodes, fused_groups=fused_groups)
         self.schedule = self.exec_choice.schedule
-        if not self.exec_choice.fits:
-            raise NotImplementedError(
-                f"one coloring's modeled peak of "
-                f"{self.exec_choice.peak_bytes_per_coloring} bytes exceeds "
-                f"the memory budget; the JAX package then runs colorset "
-                f"chunking, which is {_TODO}; raise memory_budget_bytes")
         self.batch_size = int(batch_size if batch_size is not None
                               else self.exec_choice.batch_size)
         self._materialize()
@@ -247,11 +278,22 @@ class CountingEngine:
             self._materialize_inner()
 
     def _materialize_inner(self) -> None:
+        if self._order is not None:
+            # the boundary permutation on the device: order takes a
+            # coloring in, its inverse takes a root table out
+            self._order_dev = torch.as_tensor(self._order,
+                                              device=self.device)
+            self._inv_dev = torch.as_tensor(inverse_order(self._order),
+                                            device=self.device)
+        else:
+            self._order_dev = self._inv_dev = None
         self._spmm_prep = spmm_ops.prepare(self.g, self.spmm_method,
                                            dtype=self.dtype,
                                            device=self.device)
-        # fused nodes walk the BSR blocks whatever the SpMM operand is
-        if not self.schedule.fused:
+        # fused nodes walk the BSR blocks whatever the SpMM operand is; a
+        # node both fused and chunked runs chunked
+        chunk_map = self.schedule.chunk_map
+        if not set(self.schedule.fused) - set(chunk_map):
             self._fused_prep = None
         elif self.spmm_method == "bsr":
             self._fused_prep = self._spmm_prep
@@ -259,16 +301,24 @@ class CountingEngine:
             self._fused_prep = spmm_ops.prepare(self.g, "bsr",
                                                 dtype=self.dtype,
                                                 device=self.device)
-        # static split tables per internal plan node
+        # static split tables per internal plan node, and the chunked pair
+        # walk of each node the memory model chunked
         self._splits: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._chunk_walks: dict[int, ema_ops.ChunkWalk] = {}
         for idx, node in enumerate(self.plan.nodes):
             if node.is_leaf:
                 continue
-            ia, ip = cs.split_tables(self.k, node.size,
-                                     self.plan.nodes[node.active].size)
+            t_a = self.plan.nodes[node.active].size
+            ia, ip = cs.split_tables(self.k, node.size, t_a)
             self._splits[idx] = (
                 torch.as_tensor(ia, dtype=torch.int32, device=self.device),
                 torch.as_tensor(ip, dtype=torch.int32, device=self.device))
+            q = chunk_map.get(idx, 1)
+            if q > 1:
+                pack = ema_ops.pack_chunked_splits(
+                    ia, ip, comb(self.k, node.size - t_a), q)
+                self._chunk_walks[idx] = ema_ops.chunk_walk(pack,
+                                                            self.device)
         self._released = False
         # peak live table bytes seen by the executor's on_step probe
         self._peak_bytes = 0
@@ -293,7 +343,9 @@ class CountingEngine:
     def release(self) -> None:
         """Drop the device operands; the next count call rebuilds them."""
         self._spmm_prep = self._fused_prep = None
+        self._order_dev = self._inv_dev = None
         self._splits = {}
+        self._chunk_walks = {}
         self._released = True
 
     def _ensure(self) -> None:
@@ -421,13 +473,22 @@ class CountingEngine:
         """One plan walk for a ``(B, n)`` chunk -> (totals, root tables)."""
         b = int(colorings.shape[0])
         with _tracing.span("engine.dispatch", engine=self.engine, batch=b):
+            if self._order_dev is not None:
+                # into the engine's vertex space, and the roots back out;
+                # totals are sums over whole tables and need nothing
+                colorings = colorings.index_select(-1, self._order_dev)
             totals, root = self._build_pgbsc()(colorings)
+            if self._inv_dev is not None:
+                inv = self._inv_dev
+                root = (tuple(r.index_select(-1, inv) for r in root)
+                        if self.fused else root.index_select(-1, inv))
             _tracing.sync_ready(totals)
         self.n_spmm_cols_dispatched += self.spmm_cols_per_coloring * b
         return totals, root
 
     def _build_pgbsc(self):
         splits, prep, fprep = self._splits, self._spmm_prep, self._fused_prep
+        walks = self._chunk_walks
         runner = pexec.PlanExecutor(self.plan, self.schedule)
 
         def passive_op(p_idx, m_p):
@@ -440,6 +501,12 @@ class CountingEngine:
             return ema_ops.ema(m_a, y_p, ia, ip)
 
         def combine_direct(idx, m_a, m_p):
+            # chunking wins over fusion when the memory model assigned both
+            if idx in walks:
+                # colorset-chunked node: the passive SpMM output is made
+                # and consumed one slice of C(k, t_p) rows at a time
+                return ema_ops.ema_chunked(
+                    m_a, m_p, walks[idx], lambda m: spmm_ops.spmm(m, prep))
             # fused node: SpMM and eMA in one launch; the neighbor sums
             # live only in shared memory
             ia, ip = splits[idx]
@@ -480,22 +547,24 @@ class CountingEngine:
         executor's y-cache), which is where fused plans win: a passive
         sub-template shared across templates is one SpMM for the whole
         bundle. A shared-passive fused GROUP keeps that once-per-child
-        cost; singleton-fused nodes bypass the cache and pay per consumer.
+        cost; singleton-fused and colorset-chunked nodes bypass the cache
+        and pay per consumer.
         """
         cols = 0
         seen: set[int] = set()
         counted_groups: set[tuple[int, ...]] = set()
+        chunk_map = self.schedule.chunk_map
         fused_set = self.schedule.fused_set
         group_of = self.schedule.group_of
         for idx, node in enumerate(self.plan.nodes):
             if node.is_leaf:
                 continue
             c_p = comb(self.k, self.plan.nodes[node.passive].size)
-            if idx in group_of:
+            if idx in group_of and chunk_map.get(idx, 1) <= 1:
                 if group_of[idx] not in counted_groups:
                     counted_groups.add(group_of[idx])
                     cols += c_p
-            elif idx in fused_set:
+            elif chunk_map.get(idx, 1) > 1 or idx in fused_set:
                 cols += c_p
             elif node.passive not in seen:
                 seen.add(node.passive)

@@ -17,14 +17,19 @@ SpMM result) alive for the whole bottom-up walk. Three cooperating pieces:
 * **Analytic memory model** (:func:`peak_table_bytes` /
   :func:`pick_execution`): simulates the scheduled walk in units of table
   rows and turns a single ``memory_budget_bytes`` knob into the coloring
-  batch size.
+  batch size. When even batch=1 exceeds the budget, per-node **colorset
+  chunking** is enabled: the ``C(k, t_p)`` passive axis of the SpMM/eMA is
+  split so the passive neighbor-sum table is never materialized whole
+  (see ``kernels/ema/ops.ema_chunked``) — k >= 13 templates then run under
+  budgets where the unchunked walk cannot run at all.
 
 This module follows the JAX package's ``core/executor.py`` for the walks
 the port runs: y-cached SpMM -> eMA nodes, singleton fused nodes,
-shared-passive fused groups and the kept roots of multi-template plans. It
-leaves out what only unported paths use — colorset chunking and cache-less
-(FASCIA) walks — which come over with their slices (ROADMAP.md). One more
-change: :meth:`PlanExecutor._live_bytes` sizes torch tensors.
+shared-passive fused groups, colorset-chunked nodes and the kept roots of
+multi-template plans; the memory model is the reference's, byte for byte.
+It leaves out the cache-less (FASCIA) walks, which come over with their
+engines (ROADMAP.md). One more change: :meth:`PlanExecutor._live_bytes`
+sizes torch tensors.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ __all__ = [
     "Schedule", "ExecutionChoice", "PlanExecutor",
     "liveness", "compute_schedule", "simulate_peak_rows",
     "peak_table_bytes", "pick_execution",
-    "DEFAULT_MEMORY_BUDGET_BYTES", "MAX_AUTO_BATCH",
+    "DEFAULT_MEMORY_BUDGET_BYTES", "MAX_AUTO_BATCH", "PAIR_BLOCK",
 ]
 
 # Default budget when the caller gives none: generous enough that small
@@ -49,6 +54,10 @@ DEFAULT_MEMORY_BUDGET_BYTES = 1 << 30
 # Ceiling on the budget-derived coloring batch (diminishing returns past
 # this; keeps first-call latency bounded for tiny graphs).
 MAX_AUTO_BATCH = 64
+# Rows of the (PAIR_BLOCK, N) working term buffer the model charges a
+# chunked eMA step (the reference's scatter-add block; the port's kernel
+# needs no such buffer, so its steps come in under the charge).
+PAIR_BLOCK = 128
 
 
 # --------------------------------------------------------------------------
@@ -64,12 +73,17 @@ class Schedule:
     ``free_tables[s]`` / ``free_y[s]``
         Node-table indices / y-cache keys that are dead after step ``s``
         (the step evaluating ``order[s]``) and are dropped there.
+    ``chunks``
+        ``(node idx, n_chunks)`` pairs for colorset-chunked internal nodes
+        (absent = unchunked). Chunked nodes bypass the y-cache.
     ``fused``
         Internal nodes whose SpMM -> eMA pair runs as ONE fused CUDA
         kernel (``kernels/fused``): the passive child table is consumed
         directly tile-by-tile and the ``C(k,t_p) x N`` neighbor-sum table is
         never materialized — the model charges such a step no y rows at all.
-        Fused nodes bypass the y-cache.
+        Fused nodes bypass the y-cache; a node listed in both ``chunks`` and
+        ``fused`` is treated as chunked (chunking wins, it exists because
+        even the fused footprint exceeded budget).
     ``fused_groups``
         Disjoint tuples of ``fused`` nodes sharing ONE passive child that
         run as a single shared-passive launch: the members sit consecutively
@@ -88,6 +102,11 @@ class Schedule:
     keep: tuple[int, ...] = ()
     fused: tuple[int, ...] = ()
     fused_groups: tuple[tuple[int, ...], ...] = ()
+    chunks: tuple[tuple[int, int], ...] = ()
+
+    @property
+    def chunk_map(self) -> dict[int, int]:
+        return dict(self.chunks)
 
     @property
     def fused_set(self) -> frozenset[int]:
@@ -151,22 +170,24 @@ def _regroup_order(order, groups):
     return tuple(out)
 
 
-def liveness(plan, order, *, keep: tuple[int, ...] = (),
+def liveness(plan, order, *, chunks: dict[int, int] | None = None,
+             keep: tuple[int, ...] = (),
              fused: tuple[int, ...] = ()
              ) -> tuple[tuple[tuple[int, ...], ...],
                         tuple[tuple[int, ...], ...]]:
     """Last-use analysis -> (free_tables, free_y), parallel to ``order``.
 
     A node table's life ends at the latest of: every step consuming it as
-    the *active* child; every fused step consuming it as the *passive*
-    child directly; the step that converts it into its cached y-entry (the
-    first unfused passive consumer in ``order``). A y-cache entry dies at
-    its last unfused passive consumer. The root table is never freed (it is
+    the *active* child; every chunked/fused step consuming it as the
+    *passive* child directly; the step that converts it into its cached
+    y-entry (the first unchunked, unfused passive consumer in ``order``). A
+    y-cache entry dies at its last such consumer. The root table is never freed (it is
     the result); neither is any node in ``keep`` — the extra output roots
     of a fused multi-template plan.
     """
     pos = _validate_order(plan, order)
     fset = frozenset(fused)
+    cmap = dict(chunks or {})
     n = plan.n_nodes
     table_last = {i: pos[i] for i in range(n)}
     y_steps: dict[int, list[int]] = {}
@@ -175,7 +196,7 @@ def liveness(plan, order, *, keep: tuple[int, ...] = (),
             continue
         s = pos[idx]
         table_last[node.active] = max(table_last[node.active], s)
-        if idx in fset:
+        if cmap.get(idx, 1) > 1 or idx in fset:
             table_last[node.passive] = max(table_last[node.passive], s)
         else:
             y_steps.setdefault(node.passive, []).append(s)
@@ -200,6 +221,7 @@ def liveness(plan, order, *, keep: tuple[int, ...] = (),
 # the analytic memory model (row units; bytes = rows * n * itemsize * batch)
 # --------------------------------------------------------------------------
 def _step_peaks(plan, k: int, order, free_tables, free_y, *,
+                chunks: dict[int, int],
                 fused: frozenset[int] = frozenset(),
                 fused_groups: tuple[tuple[int, ...], ...] = ()) -> list[int]:
     """Modeled live table rows at each step of the walk (working buffers
@@ -233,7 +255,13 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
             peaks.append(cur())
         else:
             out_r = rows[idx]
-            if idx in group_of:
+            q = chunks.get(idx, 1)
+            if q > 1:
+                # chunked: m_a and m_p stay live throughout; the extras are
+                # one passive chunk, one pair-block term buffer, the output
+                chunk_r = -(-rows[node.passive] // q)
+                peaks.append(cur() + chunk_r + PAIR_BLOCK + out_r)
+            elif idx in group_of:
                 # shared-passive group: every member's table materializes at
                 # the leader step (one launch); later member steps add nothing
                 grp = group_of[idx]
@@ -273,7 +301,8 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
 def simulate_peak_rows(plan, k: int, schedule: Schedule) -> int:
     """Modeled peak live table rows (1 row = one length-N float vector)."""
     peaks = _step_peaks(plan, k, schedule.order, schedule.free_tables,
-                        schedule.free_y, fused=schedule.fused_set,
+                        schedule.free_y, chunks=schedule.chunk_map,
+                        fused=schedule.fused_set,
                         fused_groups=schedule.fused_groups)
     return max(peaks) if peaks else 0
 
@@ -295,7 +324,8 @@ def peak_table_bytes(plan, k: int, n: int, batch: int = 1,
 # --------------------------------------------------------------------------
 # scheduling
 # --------------------------------------------------------------------------
-def _greedy_order(plan, k: int, *, keep: tuple[int, ...] = (),
+def _greedy_order(plan, k: int, *, chunks: dict[int, int],
+                  keep: tuple[int, ...] = (),
                   fused: frozenset[int] = frozenset()) -> list[int]:
     """Greedy list scheduling: repeatedly evaluate the ready internal node
     whose modeled step peak (then post-step live size) is smallest.
@@ -311,14 +341,14 @@ def _greedy_order(plan, k: int, *, keep: tuple[int, ...] = (),
     def buf(i: int):
         return "leaf" if plan.nodes[i].is_leaf else i
 
-    # table-buffer reference counts: active uses + fused passive uses +
+    # table-buffer reference counts: active uses + direct passive uses +
     # one per distinct cached passive child (consumed at y creation)
     refs: dict[object, int] = {}
     y_refs: dict[int, int] = {}
     for idx in internal:
         node = plan.nodes[idx]
         refs[buf(node.active)] = refs.get(buf(node.active), 0) + 1
-        if idx in fused:
+        if chunks.get(idx, 1) > 1 or idx in fused:
             refs[buf(node.passive)] = refs.get(buf(node.passive), 0) + 1
         else:
             if node.passive not in y_refs:
@@ -338,13 +368,16 @@ def _greedy_order(plan, k: int, *, keep: tuple[int, ...] = (),
         node = plan.nodes[idx]
         cur = sum(live_t.values()) + sum(live_y.values())
         out_r = rows[idx]
-        direct = idx in fused
-        if direct:
+        q = chunks.get(idx, 1)
+        if q > 1:
+            peak = cur + -(-rows[node.passive] // q) + PAIR_BLOCK + out_r
+        elif idx in fused:
             peak = cur + out_r
         else:
             creates = node.passive not in live_y
             peak = cur + (rows[node.passive] if creates else 0) + out_r
         after = cur + out_r
+        direct = q > 1 or idx in fused
         dead: set[object] = set()
         if refs.get(buf(node.active), 0) == 1:
             dead.add(buf(node.active))
@@ -367,13 +400,14 @@ def _greedy_order(plan, k: int, *, keep: tuple[int, ...] = (),
                  and plan.nodes[i].passive in done]
         pick = min(ready, key=lambda i: step_cost(i) + (i,))
         node = plan.nodes[pick]
+        direct = chunks.get(pick, 1) > 1 or pick in fused
 
         def consume(b: object) -> None:
             refs[b] = refs.get(b, 0) - 1
             if refs[b] <= 0:
                 live_t.pop(b, None)
 
-        if pick in fused:
+        if direct:
             consume(buf(node.passive))
         else:
             if node.passive not in live_y:
@@ -391,6 +425,7 @@ def _greedy_order(plan, k: int, *, keep: tuple[int, ...] = (),
 
 
 def compute_schedule(plan, k: int | None = None, *,
+                     chunks: dict[int, int] | None = None,
                      order_mode: str = "auto",
                      keep: tuple[int, ...] = (),
                      fused: tuple[int, ...] = (),
@@ -403,7 +438,8 @@ def compute_schedule(plan, k: int | None = None, *,
     simulates both and keeps the one with the smaller modeled peak.
     ``keep`` lists extra output nodes never to free (fused-plan roots);
     ``fused`` lists nodes running the fused SpMM->eMA kernel (their
-    neighbor-sum table never reaches device memory — see :class:`Schedule`).
+    neighbor-sum table never reaches device memory — see :class:`Schedule`);
+    ``chunks`` maps colorset-chunked nodes to their chunk counts.
     ``fused_groups`` lists shared-passive groups over ``fused`` nodes: each
     candidate order is regrouped so members run consecutively (one launch);
     a group whose regrouped order stops being topological — some member's
@@ -413,13 +449,15 @@ def compute_schedule(plan, k: int | None = None, *,
     consumer).
     """
     k = k or plan.k
+    cmap = dict(chunks or {})
     keep = tuple(sorted(set(keep)))
     fused = tuple(sorted(set(fused)))
     candidates: list[tuple[int, ...]] = []
     if order_mode in ("program", "auto"):
         candidates.append(tuple(range(plan.n_nodes)))
     if order_mode in ("greedy", "auto"):
-        candidates.append(tuple(_greedy_order(plan, k, keep=keep,
+        candidates.append(tuple(_greedy_order(plan, k, chunks=cmap,
+                                              keep=keep,
                                               fused=frozenset(fused))))
     if not candidates:
         raise ValueError(f"unknown order_mode {order_mode!r}")
@@ -444,9 +482,10 @@ def compute_schedule(plan, k: int | None = None, *,
         kept_members = {m for grp in accepted for m in grp}
         dropped = {m for grp in fused_groups for m in grp} - kept_members
         fused_c = tuple(i for i in fused if i not in dropped)
-        ft, fy = liveness(plan, order, keep=keep, fused=fused_c)
+        ft, fy = liveness(plan, order, chunks=cmap, keep=keep, fused=fused_c)
         sched = Schedule(order=order, free_tables=ft, free_y=fy, keep=keep,
-                         fused=fused_c, fused_groups=tuple(accepted))
+                         fused=fused_c, fused_groups=tuple(accepted),
+                         chunks=tuple(sorted(cmap.items())))
         peak = simulate_peak_rows(plan, k, sched)
         if best_peak is None or peak < best_peak:
             best, best_peak = sched, peak
@@ -469,20 +508,73 @@ def pick_execution(plan, k: int, n: int, *,
     at ``max_batch``). ``fused`` nodes run the fused SpMM->eMA kernel and
     are charged no neighbor-sum rows, so the same budget admits a larger
     batch; ``fused_groups`` and ``keep`` pass to :func:`compute_schedule`.
-    When even B=1 exceeds the budget the choice is B=1 with ``fits=False``:
-    the JAX package then chunks the passive colorset axis, which the port
-    does not do yet.
+    If even B=1 exceeds the budget, passive-axis chunk counts are doubled
+    node by node — always at the step realizing the current peak — until
+    the modeled peak fits or every chunkable node is at single-row chunks (the irreducible floor of active + passive +
+    output tables; the choice is then best-effort with ``fits=False``).
+    Shared-passive ``fused_groups`` survive only on the unchunked path:
+    once chunking starts, groups are dropped (their members return to the
+    y-cache) — a group step materializes every member's output at once,
+    the opposite of what a budget squeeze wants.
     """
     budget = memory_budget_bytes if memory_budget_bytes is not None \
         else DEFAULT_MEMORY_BUDGET_BYTES
     itemsize = np.dtype(dtype).itemsize
+    fused = tuple(sorted(set(fused)))
     sched = compute_schedule(plan, k, keep=keep, fused=fused,
                              fused_groups=fused_groups)
     per1 = simulate_peak_rows(plan, k, sched) * n * itemsize
-    if per1 > budget:
-        return ExecutionChoice(1, sched, per1, budget, False)
-    batch = max(1, min(max_batch, budget // max(per1, 1)))
-    return ExecutionChoice(int(batch), sched, per1, budget, True)
+    if per1 <= budget:
+        batch = max(1, min(max_batch, budget // max(per1, 1)))
+        return ExecutionChoice(int(batch), sched, per1, budget, True)
+
+    # chunked path: drop the shared groups AND their members from fused
+    # (members return to the y-cache — one SpMM per shared passive, just
+    # materialized in device memory; singleton-fusing them would pay it per
+    # consumer)
+    if fused_groups:
+        members = {m for grp in fused_groups for m in grp}
+        fused = tuple(i for i in fused if i not in members)
+
+    budget_rows = budget // (n * itemsize)
+    cmap: dict[int, int] = {}
+
+    def evaluate(chunk_map):
+        s = compute_schedule(plan, k, chunks=chunk_map, keep=keep,
+                             fused=fused)
+        p = _step_peaks(plan, k, s.order, s.free_tables, s.free_y,
+                        chunks=s.chunk_map, fused=s.fused_set)
+        return s, p, max(p)
+
+    sched, peaks, peak = evaluate(cmap)
+    while peak > budget_rows:
+        # try chunking the node at the hottest step; accept only strict
+        # improvements (chunking keeps m_a AND m_p live through the step,
+        # so it can lose when the passive table is narrow)
+        improved = False
+        for s_idx in sorted(range(len(peaks)), key=lambda s: -peaks[s]):
+            hot = sched.order[s_idx]
+            node = plan.nodes[hot]
+            if node.is_leaf:
+                continue
+            p_rows = comb(k, plan.nodes[node.passive].size)
+            q = cmap.get(hot, 1)
+            if q >= p_rows:
+                continue
+            for q_new in (min(2 * q, p_rows), p_rows):
+                trial = dict(cmap)
+                trial[hot] = q_new
+                t_sched, t_peaks, t_peak = evaluate(trial)
+                if t_peak < peak:
+                    cmap, sched, peaks, peak = trial, t_sched, t_peaks, t_peak
+                    improved = True
+                    break
+            if improved:
+                break
+        if not improved:   # irreducible floor for every hot step
+            break
+    per1 = peak * n * itemsize
+    return ExecutionChoice(1, sched, per1, budget, per1 <= budget)
 
 
 # --------------------------------------------------------------------------
@@ -499,8 +591,9 @@ class PlanExecutor:
       distinct passive child;
     * ``combine(idx, m_a, y_p)``: eMA of the active table with the cached
       transform;
-    * ``combine_direct(idx, m_a, m_p)``: fused SpMM->eMA nodes — consumes
-      the passive *table* directly;
+    * ``combine_direct(idx, m_a, m_p)``: colorset-chunked nodes and fused
+      SpMM->eMA nodes — consumes the passive *table* directly (the engine
+      picks the chunked walk or the fused kernel per node);
     * ``combine_group(members, m_as, m_p)``: one shared-passive launch for a
       whole ``fused_groups`` group — returns one table per member. Required
       iff the schedule carries groups; invoked at the group's first member's
@@ -535,10 +628,11 @@ class PlanExecutor:
         Every non-root output must be in the schedule's ``keep`` set."""
         plan, sched = self.plan, self.schedule
         fset = sched.fused_set
+        chunks = sched.chunk_map
         group_of = sched.group_of
-        if fset - set(group_of) and combine_direct is None:
-            raise ValueError("schedule has fused nodes; run() needs a "
-                             "combine_direct callback")
+        if (fset - set(group_of) or chunks) and combine_direct is None:
+            raise ValueError("schedule has fused or chunked nodes; run() "
+                             "needs a combine_direct callback")
         if group_of and combine_group is None:
             raise ValueError("schedule carries fused_groups; run() needs a "
                              "combine_group callback")
@@ -556,7 +650,7 @@ class PlanExecutor:
             node = plan.nodes[idx]
             if node.is_leaf:
                 tables[idx] = leaf
-            elif idx in group_of:
+            elif idx in group_of and chunks.get(idx, 1) <= 1:
                 grp = group_of[idx]
                 if idx not in tables:
                     # leader step: one launch materializes EVERY member
@@ -570,13 +664,16 @@ class PlanExecutor:
                 # non-leader member steps: table already present, only frees
             else:
                 m_a = tables[node.active]
-                fused = idx in fset
+                chunked = chunks.get(idx, 1) > 1
+                direct = chunked or idx in fset
+                mode = ("chunked" if chunked else "fused" if direct
+                        else "cached")
                 # kernel launches are asynchronous: these spans expose
                 # per-node plan structure and launch time, not device
                 # time — that belongs to the engine's dispatch span
                 with _tracing.span("plan.node", idx=idx, size=node.size,
-                                   mode="fused" if fused else "cached"):
-                    if fused:
+                                   mode=mode):
+                    if direct:
                         tables[idx] = combine_direct(idx, m_a,
                                                      tables[node.passive])
                     else:

@@ -15,9 +15,9 @@ All formats represent the *reverse* traversal used by the DP: for an undirected
 graph, A is symmetric and Y[:, i] = sum_{j in N(i)} M[:, j].
 
 A copy of the JAX package's ``graph/structure.py`` without the formats of
-engines the port does not run yet (ELL lists) and without the helpers only
-the service and reordering use (``fingerprint``, ``bsr_block_stats``,
-``to_dense``); ``bsr`` is vectorised (same bytes as the reference's block
+engines the port does not run yet (ELL lists) and without ``to_dense``;
+``fingerprint`` and ``bsr_block_stats`` give the reference's strings and
+dicts (vertex reordering publishes the block counts); ``bsr`` is vectorised (same bytes as the reference's block
 loop, tested). The reference's gather operand, ``edge_chunks``, pads every
 (destination tile, source tile) pair to 512-edge chunks so the TPU can
 densify each chunk into a 128x128 tile; the card gathers edges directly,
@@ -29,6 +29,7 @@ the stream (``chip_smoke.py`` prints both sizes for ``rmat(20)``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from functools import cached_property
 
 import numpy as np
@@ -159,6 +160,19 @@ class Graph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr).astype(np.int64)
 
+    @cached_property
+    def fingerprint(self) -> str:
+        """Stable content hash of the CSR structure (32 hex chars), equal
+        across processes and machines for equal graphs."""
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.int64(self.n).tobytes())
+        h.update(np.ascontiguousarray(self.indptr, np.int64).tobytes())
+        h.update(np.ascontiguousarray(self.indices, np.int32).tobytes())
+        return h.hexdigest()
+
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v]:self.indptr[v + 1]]
+
     # ------------------------------------------------------- device formats
     @cached_property
     def edges_by_dst(self) -> tuple[np.ndarray, np.ndarray]:
@@ -225,6 +239,33 @@ class Graph:
         return BsrMatrix(blocks=blocks, src_tile=lay.src_tile,
                          dst_tile=lay.dst_tile, tile=tile,
                          n_tiles=lay.n_tiles)
+
+    def bsr_block_stats(self, tile: int = 128) -> dict:
+        """Occupied-block count and density of the ``tile`` BSR layout
+        without building any blocks (one unique pass over the edges' tile
+        keys). The zero filler blocks of empty destination tiles (see
+        :meth:`bsr_layout`) are left out: this counts the blocks that hold
+        nonzeros, which vertex reordering tries to shrink.
+        """
+        n_tiles = -(-self.n // tile)
+        if self.m == 0:
+            occupied = 0
+        else:
+            src, dst = self.edges_by_dst
+            key = (dst // tile).astype(np.int64) * n_tiles + src // tile
+            occupied = int(np.unique(key).size)
+        total = n_tiles * n_tiles
+        return {
+            "tile": tile,
+            "n_tiles": n_tiles,
+            "occupied_blocks": occupied,
+            "total_blocks": total,
+            # fraction of the tile grid that is occupied (reordering
+            # shrinks it) and nonzeros per occupied block (reordering
+            # grows it)
+            "block_density": occupied / total if total else 0.0,
+            "nnz_per_block": self.m / occupied if occupied else 0.0,
+        }
 
     def padded(self, multiple: int) -> "Graph":
         """Pad vertex count up to a multiple (isolated padding vertices)."""

@@ -31,6 +31,7 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v"]
 _LIB_NAME = "libreprotorch.so"
 _lib: list[ctypes.CDLL] = []
+_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -106,10 +107,15 @@ def library() -> ctypes.CDLL:
 
 def kernel(name: str, argtypes: list) -> ctypes._CFuncPtr:
     """C entry point ``name`` with its argument types declared (every
-    pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    pointer and the stream as ``c_void_p``, so none is cut to 32 bits).
+    Declared once and kept: the chunked eMA calls its wrappers thousands of
+    times a coloring."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 

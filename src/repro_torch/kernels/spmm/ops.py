@@ -40,7 +40,8 @@ from repro_torch.graph.structure import Graph, block_nonzero_index
 from repro_torch.kernels import _build
 
 __all__ = ["BsrPrep", "GatherPrep", "METHODS", "prepare", "from_arrays",
-           "spmm", "spmm_plain", "spmm_gather", "spmm_gather_plain"]
+           "spmm", "spmm_plain", "spmm_gather", "spmm_gather_plain",
+           "spmm_row_chunk"]
 
 # operand kinds of prepare(); the JAX package's "pallas_bsr" and
 # "pallas_gather" backends
@@ -384,3 +385,15 @@ def spmm_gather(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
 
 
 spmm_gather.launches = 0
+
+
+def spmm_row_chunk(m: torch.Tensor, q: int, rows: int) -> torch.Tensor:
+    """Chunk ``q`` of the combination-row axis of a ``(..., C, N)`` table,
+    rows ``q*rows`` to ``(q+1)*rows``, for the colorset-chunked eMA: each
+    chunk is a self-contained SpMM operand (rows are independent). The last
+    chunk is sliced short, not padded (the JAX package's ``spmm_row_chunks``
+    pads, which would copy the whole table). At batch 1 the chunk is a view;
+    at batch > 1 the slice is strided, and the kernels take contiguous
+    tables, so it is copied (``(B, rows, N)``)."""
+    c = m[..., q * rows:(q + 1) * rows, :]
+    return c if c.is_contiguous() else c.contiguous()

@@ -458,3 +458,136 @@ def test_gather_engine_on_card_matches_cpu(card, dtype):
     t_cpu, r_cpu = on_cpu.count_colorful_batch(cols)
     _close(t_card, t_cpu, dtype)
     _close(r_card, r_cpu, dtype)
+
+
+# the chunk-accumulate kernel: (k, t, t_a, chunks, batch). "r1": single
+# passive rows (u13 node 5's kind of chunking); "r_gt_1": 26 rows a chunk,
+# so an output row takes several pairs in one chunk; "short_last": 19 rows
+# a chunk over 56, the last one 18 rows; "batched": B = 3, whose chunks
+# are strided slices copied by spmm_row_chunk. n = 1000 is not a multiple
+# of the kernel's 256 columns.
+CHUNK_CASES = {
+    "r1": (10, 6, 1, 252, 1),
+    "r_gt_1": (9, 6, 2, 5, 1),
+    "short_last": (8, 5, 2, 3, 1),
+    "batched": (9, 6, 2, 5, 3),
+}
+
+
+def _chunk_walk_inputs(k, t, t_a, q, b, dtype, device, seed):
+    ia, ip = split_tables(k, t, t_a)
+    c_a, c_p = comb(k, t_a), comb(k, t - t_a)
+    pack = ema_ops.pack_chunked_splits(ia, ip, c_p, q)
+    m_a = _rand((b, c_a, 1000), dtype, device, seed)
+    m_p = _rand((b, c_p, 1000), dtype, device, seed + 1)
+    return pack, m_a, m_p
+
+
+def _accumulate(acc_fn, pack, walk, m_a, m_p):
+    out = torch.zeros(m_a.shape[:-2] + (pack.n_out_rows, m_a.shape[-1]),
+                      dtype=m_a.dtype, device=m_a.device)
+    for q in range(pack.n_chunks):
+        acc_fn(out, m_a, spmm_ops.spmm_row_chunk(m_p, q, pack.chunk_rows),
+               walk, q)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_ema_chunk_kernel_matches_plain_deterministically(card, dtype, case):
+    k, t, t_a, q, b = CHUNK_CASES[case]
+    pack, m_a, m_p = _chunk_walk_inputs(k, t, t_a, q, b, dtype, card, q)
+    walk = ema_ops.chunk_walk(pack, card)
+    before = ema_ops.ema_chunk_acc.launches
+    got = _accumulate(ema_ops.ema_chunk_acc, pack, walk, m_a, m_p)
+    assert ema_ops.ema_chunk_acc.launches == before + q   # one a chunk
+    again = _accumulate(ema_ops.ema_chunk_acc, pack, walk, m_a, m_p)
+    assert torch.equal(got, again)                        # bit for bit
+    want = _accumulate(ema_ops.ema_chunk_acc_plain, pack, walk, m_a, m_p)
+    _close(got, want, dtype)
+    # the CPU's plain version adds in the kernel's order: equal bit for bit
+    cpu_walk = ema_ops.chunk_walk(pack, "cpu")
+    on_cpu = _accumulate(ema_ops.ema_chunk_acc_plain, pack, cpu_walk,
+                         m_a.cpu(), m_p.cpu())
+    assert torch.equal(got.cpu(), on_cpu)
+    if dtype == torch.float32:                   # the unchunked eMA
+        ia, ip = _splits(k, t, t_a, card)
+        _close(got, ema_ops.ema(m_a, m_p, ia, ip), dtype)
+
+
+def test_ema_chunk_kernel_skips_a_chunk_without_pairs(card):
+    pack, m_a, m_p = _chunk_walk_inputs(8, 5, 2, 3, 2, torch.float32, card,
+                                        7)
+    mask = pack.mask.copy()
+    mask[1] = 0                                   # chunk 1: no real pairs
+    empty = ema_ops.ChunkedSplits(
+        out_idx=pack.out_idx, a_idx=pack.a_idx, p_loc=pack.p_loc, mask=mask,
+        n_chunks=pack.n_chunks, chunk_rows=pack.chunk_rows,
+        n_out_rows=pack.n_out_rows, pair_block=pack.pair_block)
+    walk = ema_ops.chunk_walk(empty, card)
+    out = _rand((2, pack.n_out_rows, 1000), torch.float32, card, 9)
+    kept = out.clone()
+    before = ema_ops.ema_chunk_acc.launches
+    y = spmm_ops.spmm_row_chunk(m_p, 1, pack.chunk_rows)
+    ema_ops.ema_chunk_acc(out, m_a, y, walk, 1)
+    assert ema_ops.ema_chunk_acc.launches == before   # nothing launched
+    assert torch.equal(out, kept)
+    got = _accumulate(ema_ops.ema_chunk_acc, empty, walk, m_a, m_p)
+    want = _accumulate(ema_ops.ema_chunk_acc_plain, empty, walk, m_a, m_p)
+    assert ema_ops.ema_chunk_acc.launches == before + 2
+    _close(got, want, torch.float32)
+
+
+def test_ema_chunk_wrapper_raises(card):
+    pack, m_a, m_p = _chunk_walk_inputs(8, 5, 2, 3, 2, torch.float32, card,
+                                        1)
+    walk = ema_ops.chunk_walk(pack, card)
+    out = torch.zeros((2, pack.n_out_rows, 1000), device=card)
+    y = spmm_ops.spmm_row_chunk(m_p, 0, pack.chunk_rows)
+    with pytest.raises(TypeError):                         # dtype mismatch
+        ema_ops.ema_chunk_acc(out, m_a.bfloat16(), y, walk, 0)
+    with pytest.raises(TypeError):                         # f16 storage
+        ema_ops.ema_chunk_acc(out.half(), m_a.half(), y.half(), walk, 0)
+    with pytest.raises(ValueError):                        # not contiguous
+        ema_ops.ema_chunk_acc(out, m_a, m_p[:, :pack.chunk_rows], walk, 0)
+    with pytest.raises(ValueError):                        # wrong device
+        ema_ops.ema_chunk_acc(out, m_a.cpu(), y, walk, 0)
+    with pytest.raises(ValueError):                        # output rows
+        ema_ops.ema_chunk_acc(out[:, :3].contiguous(), m_a, y, walk, 0)
+
+
+@pytest.mark.parametrize("method", ["bsr", "gather"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_engine_on_card_matches_cpu(card, dtype, method):
+    g = grid_2d(32, 32)
+    kw = dict(plan="optimized", memory_budget_bytes=(16 << 20)
+              // (4 // dtype.itemsize), dtype=dtype, spmm_method=method)
+    on_card = CountingEngine(g, "u13", device=card, **kw)
+    on_cpu = CountingEngine(g, "u13", device="cpu", **kw)
+    assert on_card.schedule.chunk_map == {5: 1716}
+    cols = batch_colorings(4, range(2), g.n, 13, device="cpu")
+    # each chunk's neighbour sums go through the engine's SpMM kernel
+    spmm_fn = spmm_ops.spmm if method == "bsr" else spmm_ops.spmm_gather
+    before = (ema_ops.ema_chunk_acc.launches, spmm_fn.launches)
+    t_card, r_card = on_card.count_colorful_batch(cols)
+    assert ema_ops.ema_chunk_acc.launches == before[0] + 2 * 1716
+    assert spmm_fn.launches >= before[1] + 2 * 1716
+    t_cpu, r_cpu = on_cpu.count_colorful_batch(cols)
+    _close(t_card, t_cpu, dtype)
+    _close(r_card, r_cpu, dtype)
+
+
+@pytest.mark.parametrize("method", ["bsr", "gather"])
+@pytest.mark.parametrize("name", ["rcm", "degree"])
+def test_reordered_engine_on_card_matches_cpu(card, name, method):
+    perm = np.random.default_rng(3).permutation(40 * 40)
+    from repro_torch.graph.reorder import apply_order
+    g = apply_order(grid_2d(40, 40), perm)
+    kw = dict(plan="optimized", reorder=name, spmm_method=method)
+    on_card = CountingEngine(g, "u7", device=card, **kw)
+    on_cpu = CountingEngine(g, "u7", device="cpu", **kw)
+    cols = batch_colorings(5, range(3), g.n, 7, device="cpu")
+    t_card, r_card = on_card.count_colorful_batch(cols)
+    t_cpu, r_cpu = on_cpu.count_colorful_batch(cols)
+    _close(t_card, t_cpu, torch.float32)
+    _close(r_card, r_cpu, torch.float32)

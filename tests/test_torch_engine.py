@@ -152,7 +152,7 @@ def test_release_rebuilds_on_next_call():
 @pytest.mark.parametrize("kw,match", [
     (dict(engine="fascia"), "fascia"),
     (dict(spmm_method="segment"), "segment"),
-    (dict(reorder="rcm"), "rcm"),
+    (dict(engine="pfascia"), "pfascia"),
 ])
 def test_unported_options_raise(kw, match):
     g = generators.grid_2d(4, 4)
@@ -168,8 +168,13 @@ def test_multi_template_and_chunking_raise():
         CountingEngine(g, ["u5", "u7"], plan="dedup", device="cpu")
     with pytest.raises(ValueError, match="plain"):
         CountingEngine(g, ["u5", "u5"], device="cpu")
+
+
+def test_u10_budget_runs_chunked():
+    g = generators.grid_2d(16, 16)
     # u10's unfused plain plan at half its batch-1 peak makes the memory
-    # model chunk a node's passive axis
-    with pytest.raises(NotImplementedError, match="chunking"):
-        CountingEngine(g, "u10", plan="plain", device="cpu",
-                       fuse_spmm_ema=False, memory_budget_bytes=309_248)
+    # model chunk a node's passive axis, and the engine runs it chunked
+    # (tests/test_torch_chunking.py holds the counts against the reference)
+    eng = CountingEngine(g, "u10", plan="plain", device="cpu",
+                         fuse_spmm_ema=False, memory_budget_bytes=309_248)
+    assert eng.schedule.chunk_map and eng.batch_size == 1
