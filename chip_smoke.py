@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives six paths of the
+``src/repro_torch/csrc``) and nothing of JAX. It drives nine paths of the
 port, each with every kernel's launch counter set to 0 just before it and
 read just after:
 
@@ -25,7 +25,20 @@ read just after:
   over 8 colorings (a) through the gather SpMM as it is, (b) the same with
   ``reorder="rcm"``, (c) ``api.count(..., reorder="rcm")`` on the default
   BSR and fused path, which cannot build its blocks unreordered;
-* **path B relabelled:** path B's engine with ``reorder="degree"``.
+* **path B relabelled:** path B's engine with ``reorder="degree"``;
+* **(R) the runner:** ``EstimatorRunner(engine_counter(eng, seed=0),
+  n_iterations=8, checkpoint_every=3)`` over u12 on the mesh (optimized
+  plan, 32 GiB, batch 4), a ledger in a temporary directory: a straight
+  run against one cut after 4 iterations and resumed by a new runner, the
+  straight run at batch 1 and 4, an injected ``kernel.dispatch`` fault and
+  a torn ledger (``faults.active_plan``), every per-iteration sum held
+  bit-equal; seconds per coloring beside ``eng.estimate(8)``;
+* **(F) the paper's three regimes:** u12 on the mesh, ``plan="plain"``,
+  ``CountingEngine(engine="fascia")`` over 2 colorings at 24 GiB,
+  ``"pfascia"`` over 4 at 24 GiB and ``"pgbsc"`` (default operands and
+  fusion) over 8 at 32 GiB, each in whole batches timed after one untimed
+  batch; the row-major engines run torch's ops (no hand-written kernel
+  launches), and iterations 0-1 agree across the three.
 
 In order it prints:
 
@@ -47,12 +60,20 @@ In order it prints:
    versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
    ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; all
    106 estimates of the k=10 census on ``grid_2d(64, 64)``, 2 colorings;
-   u12 with ``spmm_method="gather"`` on ``rmat(12)``;
-5. the six full-size runs, each with its kernels' launches (all must be
-   > 0), peak device memory and seconds per coloring; the chunked run's
+   u12 with ``spmm_method="gather"`` on ``rmat(12)``; FASCIA and PFASCIA
+   u12 on ``grid_2d(64, 64)``, 2 colorings; the ``segment``, ``ell`` and
+   ``dense`` SpMM backends against the BSR kernel on ``rmat(12)``, each
+   run twice and bit-equal to itself;
+5. the full-size runs, each with its kernels' launches (each kernel of a
+   PGBSC path must launch; the row-major engines launch none), peak
+   device memory and seconds per coloring; the chunked run's
    peak beside the model's and the unchunked run's, and the reordered runs'
-   occupied blocks and host seconds;
-6. where the time goes: one batch of each full-size path under
+   occupied blocks and host seconds; (R)'s ``[runner]`` lines and (F)'s
+   ``[regime]`` lines: each regime's batch, seconds per coloring, peak
+   beside ``exec_choice.peak_bytes`` and ``engine.work.total_flops``, and
+   the ratios FASCIA/PGBSC and PFASCIA/PGBSC;
+6. where the time goes: one batch of each full-size path (FASCIA's and
+   PFASCIA's among them) under
    ``torch.profiler``, device time and launches by kernel, the device's
    idle share, the host's CUDA calls and the allocator's retries;
 7. the script's total seconds, one JSON line with every kernel's numbers,
@@ -79,6 +100,11 @@ BF16_RTOL = 1e-2               # bf16 storage rounds the stored results
 PATH_RTOL = 1e-5               # f32 sums past 2^24 taken in another order
 GIB = 1 << 30
 CENSUS_BUDGET = 48 * GIB       # path A and path B memory budget
+# the paper's regimes (F): FASCIA's and PFASCIA's split temporaries lie
+# outside the memory model (a few (B, N, 792) f32 buffers at u12's widest
+# node, 3.3 GB a coloring each), so their budgets leave room for them
+FASCIA_BUDGET = 24 * GIB       # batch 2 (10.1 GiB a coloring modeled)
+PFASCIA_BUDGET = 24 * GIB      # batch 3 (7.0 GiB a coloring modeled)
 
 
 # ---------------------------------------------------------------- census
@@ -623,6 +649,291 @@ def phase_chunked_full(g, chunk_row: dict) -> dict:
     del eng2, res2
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_parity_rowmajor() -> None:
+    """FASCIA and PFASCIA, u12 on grid_2d(64, 64), 2 colorings: card
+    against CPU."""
+    import torch
+
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.graph.coloring import batch_colorings
+    from repro_torch.graph.generators import grid_2d
+
+    g = grid_2d(64, 64)
+    cols = batch_colorings(0, range(2), g.n, 12, device="cuda")
+    for engine in ("fascia", "pfascia"):
+        card = CountingEngine(g, "u12", engine=engine, device="cuda")
+        host = CountingEngine(g, "u12", engine=engine, device="cpu")
+        t_card, r_card = card.count_colorful_batch(cols)
+        t_host, r_host = host.count_colorful_batch(cols.cpu())
+        _sync()
+        torch.testing.assert_close(t_card.cpu(), t_host, rtol=PATH_RTOL,
+                                   atol=0)
+        torch.testing.assert_close(r_card.cpu(), r_host, rtol=PATH_RTOL,
+                                   atol=0)
+        print(f"[parity] {engine} u12 grid_2d(64,64) 2 colorings: card "
+              f"totals {t_card.tolist()} == CPU totals (rtol "
+              f"{PATH_RTOL:g}); root tables {tuple(r_card.shape)} agree",
+              flush=True)
+
+
+def phase_parity_backends() -> None:
+    """The segment, ell and dense SpMM backends (torch's ops) against the
+    BSR kernel on rmat(12), a (2, 220, n) integer table, f32; each run
+    twice and held bit-equal to itself."""
+    import torch
+
+    from repro_torch.graph.generators import rmat
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    g = rmat(12)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = torch.randint(0, 4, (2, 220, g.n), generator=gen, device="cuda",
+                      dtype=torch.int32).float()
+    want = spmm_ops.spmm(m, spmm_ops.prepare(g, "bsr"))
+    for method in ("segment", "ell", "dense"):
+        prep = spmm_ops.prepare(g, method)
+        got = spmm_ops.spmm(m, prep)
+        again = spmm_ops.spmm(m, prep)
+        _sync()
+        abs_err, rel_err = _errors(got, want)
+        ms = _time_ms(lambda: spmm_ops.spmm(m, prep), 3)
+        print(f"[parity] SpMM backend {method} rmat(12) n={g.n} m={g.m} "
+              f"max_degree={g.max_degree} (2,220,n) f32: max abs err vs "
+              f"bsr {abs_err:.3e} rel {rel_err:.3e} (rtol {F32_RTOL:g}); "
+              f"repeat bit-equal {bool(torch.equal(got, again))}; "
+              f"{ms:.3f} ms", flush=True)
+        if rel_err > F32_RTOL or not torch.equal(got, again):
+            raise AssertionError(f"SpMM backend {method} disagrees with bsr "
+                                 f"or with itself")
+
+
+def phase_runner(g) -> dict:
+    """(R) The fault-tolerant runner on the card: u12 on grid_2d(1024,
+    1024), optimized plan, 32 GiB (batch 4), 8 iterations in checkpoints
+    of 3. A straight run against one cut after 4 iterations and resumed by
+    a new runner, the straight run at batch 1 and 4, an injected dispatch
+    fault and a torn ledger: every per-iteration sum equal bit for bit.
+    Then the engine's totals over a table whose sums pass 2^24, at B =
+    1..8. Returns the straight run's launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.core.runner import EstimatorRunner, engine_counter
+    from repro_torch.graph.coloring import batch_colorings
+    from repro_torch.resilience import faults
+
+    eng = CountingEngine(g, "u12", plan="optimized",
+                         memory_budget_bytes=32 * GIB)
+    tpl = eng.template
+    eng.estimate(4)                     # first batch: the allocator's
+    _sync()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ledger_") as tmp:
+        def runner(sub, batch_size=None, every=3):
+            return EstimatorRunner(
+                engine_counter(eng, seed=0, batch_size=batch_size), k=12,
+                automorphisms=tpl.automorphisms, n_iterations=8,
+                ledger_dir=str(Path(tmp) / sub), checkpoint_every=every,
+                seed=0)
+
+        def check(label, res, want):
+            same = (res.per_iteration == want.per_iteration
+                    and res.count == want.count)
+            print(f"[runner] {label}: count={res.count!r} restarts="
+                  f"{res.restarts} per-iteration sums bit-equal to the "
+                  f"straight run: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{label}: {res.per_iteration} != "
+                                     f"{want.per_iteration}")
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        straight = runner("straight").run()
+        _sync()
+        t_runner = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        est = eng.estimate(8)
+        _sync()
+        t_est = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        like = runner("every4", every=4).run()
+        _sync()
+        t_like = time.perf_counter() - t0
+        print(f"[runner] u12 grid_2d(1024,1024) batch {eng.batch_size}, 8 "
+              f"iterations: straight run in checkpoints of 3 (batches "
+              f"3, 3, 2) {t_runner / 8:.4f} s per coloring; in "
+              f"checkpoints of 4 (batches 4, 4) {t_like / 8:.4f}; "
+              f"eng.estimate(8) (batches 4, 4) {t_est / 8:.4f}; count "
+              f"{straight.count!r}, estimate {est['count']!r}; launches "
+              f"{launches}; max_memory_allocated={peak} ({peak / GIB:.2f} "
+              f"GiB), modeled tables {eng.peak_table_bytes}", flush=True)
+        if list(straight.per_iteration) != list(range(8)) or not (
+                math.isfinite(straight.count) and straight.count > 0):
+            raise AssertionError(f"bad straight run {straight}")
+        check("checkpoints of 4", like, straight)
+        if not math.isclose(straight.count, est["count"], rel_tol=1e-12):
+            raise AssertionError(f"runner {straight.count} != estimate "
+                                 f"{est['count']}")
+        if min(launches[k] for k in ("spmm_bsr", "ema",
+                                     "fused_spmm_ema")) == 0:
+            raise AssertionError(f"a kernel of the path never launched: "
+                                 f"{launches}")
+        cut = runner("cut").run(max_iterations_this_call=4)
+        if cut.completed != [0, 1, 2, 3]:
+            raise AssertionError(f"cut run completed {cut.completed}")
+        check("cut after 4 (batches 3, 1), resumed by a new runner "
+              "(batches 3, 1)", runner("cut").run(), straight)
+        check("batch 1", runner("b1", batch_size=1, every=8).run(),
+              straight)
+        check("batch 4", runner("b4", batch_size=4, every=8).run(),
+              straight)
+        # the reference's reduction, an f32 sum of each root table over
+        # the whole batch, against the same sum at batch 1
+        cols = batch_colorings(0, range(4), g.n, 12, device="cuda")
+        _, r4 = eng.count_colorful_batch(cols, batch_size=4)
+        _, r1 = eng.count_colorful_batch(cols, batch_size=1)
+        f32_4 = r4.sum(dim=(-2, -1))
+        f32_1 = torch.cat([r1[i:i + 1].sum(dim=(-2, -1)) for i in range(4)])
+        roots_equal = bool(torch.equal(r4, r1))
+        print(f"[runner] root tables at batch 4 == batch 1 bit for bit: "
+              f"{roots_equal}; an f32 sum over (4,1,n) vs four (1,1,n) "
+              f"sums bit-equal: {bool(torch.equal(f32_4, f32_1))} "
+              f"({f32_4.tolist()} vs {f32_1.tolist()}; largest "
+              f"{f32_4.max().item() / 2 ** 24:.3f} x 2^24); the engine's "
+              f"float64 totals {eng._totals(r4).tolist()}", flush=True)
+        if not roots_equal:
+            raise AssertionError("a kernel's summation order changes with "
+                                 "the batch")
+        # f32 sums over integer tables of the root's shape whose sums pass
+        # 2^24 (as path B's do): torch's split of the reduction changes
+        # with the batch, so the engine sums each coloring in float64
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        big = torch.randint(0, 1 << 12, (8, 1, g.n), generator=gen,
+                            device="cuda").float()
+        f32_rows, f64_rows = [], []
+        for b in range(1, 9):
+            parts = [big[i:i + b] for i in range(0, 8, b)]
+            f32_rows.append(torch.cat([p.sum(dim=(-2, -1)) for p in parts]))
+            f64_rows.append(torch.cat([eng._totals(p) for p in parts]))
+        f32_moved = [int((r != f32_rows[0]).sum().item()) for r in f32_rows]
+        f64_moved = [int((r != f64_rows[0]).sum().item()) for r in f64_rows]
+        mean = big.double().sum(dim=(-2, -1)).mean().item()
+        print(f"[runner] integer (8,1,n) table, sums ~{mean:.3e} "
+              f"({mean / 2 ** 24:.0f} x 2^24), summed at batch B = 1..8: "
+              f"rows whose f32 sum differs from batch 1 {f32_moved}; "
+              f"rows whose engine total (float64) differs {f64_moved}",
+              flush=True)
+        if any(f64_moved):
+            raise AssertionError("the engine's totals depend on the batch")
+        del r4, r1, big
+        plan = faults.FaultPlan([faults.FaultSpec("kernel.dispatch",
+                                                  after=1, times=1)])
+        with faults.active_plan(plan):
+            try:
+                runner("chaos").run()
+            except faults.InjectedFault as exc:
+                print(f"[runner] kernel.dispatch:raise after 1 hit: "
+                      f"{exc}", flush=True)
+            else:
+                raise AssertionError("the injected dispatch fault did not "
+                                     "reach the caller")
+        r = runner("chaos")
+        kept = sorted(r.completed_iterations())
+        if kept != [0, 1, 2]:
+            raise AssertionError(f"ledger after the fault holds {kept}")
+        check(f"resumed after the fault (ledger held {kept})", r.run(),
+              straight)
+        plan = faults.FaultPlan([faults.FaultSpec("ledger.write",
+                                                  mode="corrupt", times=1)])
+        with faults.active_plan(plan):
+            runner("torn").run(max_iterations_this_call=3)
+        r = runner("torn")
+        loaded = r.completed_iterations()
+        sidecar = Path(tmp) / "torn" / "ledger.json.corrupt"
+        if loaded or not sidecar.exists():
+            raise AssertionError(f"torn ledger not quarantined: {loaded}")
+        res = r.run()
+        if res.restarts != 0:
+            raise AssertionError("a cold restart counted as a resume")
+        check("ledger.write:corrupt once, quarantined to ledger.json."
+              "corrupt, restarted cold", res, straight)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_regimes(g) -> dict:
+    """(F) The paper's three regimes on one card: u12 on grid_2d(1024,
+    1024), plain plan, seed 0, f32 — FASCIA over 2 colorings, PFASCIA over
+    4, PGBSC (default operands and fusion) over 8, each rounded up to
+    whole batches of its engine and timed after one untimed batch (the
+    first batch's allocations are set-up). Iterations 0-1 agree across
+    the three. Returns each regime's launches by path name."""
+    import torch
+
+    from repro_torch.core.engines import CountingEngine
+
+    regimes = (("fascia", 2, FASCIA_BUDGET), ("pfascia", 4, PFASCIA_BUDGET),
+               ("pgbsc", 8, 32 * GIB))
+    sums, secs, out = {}, {}, {}
+    for engine, n_want, budget in regimes:
+        _reset_counts()
+        t0 = time.perf_counter()
+        eng = CountingEngine(g, "u12", engine=engine, plan="plain",
+                             memory_budget_bytes=budget)
+        _sync()
+        built = time.perf_counter() - t0
+        b = eng.batch_size
+        n_col = -(-n_want // b) * b
+        eng.count_iterations_batch(range(b), seed=0)
+        _sync()
+        t0 = time.perf_counter()
+        per = eng.count_iterations_batch(range(n_col), seed=0)
+        _sync()
+        loop = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        w = eng.work
+        sums[engine], secs[engine] = per, loop / n_col
+        out[f"u12_plain_{engine}"] = _read_counts()
+        print(f"[regime] {engine} u12 plain grid_2d(1024,1024): budget "
+              f"{budget / GIB:.0f} GiB batch={eng.batch_size} fits="
+              f"{eng.exec_choice.fits} {n_col} colorings after one warm "
+              f"batch s_per_coloring={loop / n_col:.4f} (count loop "
+              f"{loop:.3f} s, engine build {built:.3f} s) "
+              f"max_memory_allocated={peak} ({peak / GIB:.2f} GiB) "
+              f"modeled tables "
+              f"exec_choice.peak_bytes={eng.exec_choice.peak_bytes} "
+              f"({eng.exec_choice.peak_bytes / GIB:.2f} GiB) work: "
+              f"total_flops={w.total_flops} (sweep/SpMM {w.spmm_flops}, "
+              f"combine {w.ema_flops}) launches={out[f'u12_plain_{engine}']}"
+              f" sums {[per[i] for i in range(2)]}", flush=True)
+        if not all(math.isfinite(v) and v > 0 for v in per.values()):
+            raise AssertionError(f"{engine}: bad sums {per}")
+        del eng
+        torch.cuda.empty_cache()
+    for engine in ("fascia", "pfascia"):
+        for i in range(2):
+            if not math.isclose(sums[engine][i], sums["pgbsc"][i],
+                                rel_tol=PATH_RTOL):
+                raise AssertionError(
+                    f"iteration {i}: {engine} {sums[engine][i]} != pgbsc "
+                    f"{sums['pgbsc'][i]}")
+    print(f"[regime] iterations 0-1 agree across the three (rtol "
+          f"{PATH_RTOL:g}); seconds per coloring FASCIA/PGBSC "
+          f"{secs['fascia'] / secs['pgbsc']:.1f}x, PFASCIA/PGBSC "
+          f"{secs['pfascia'] / secs['pgbsc']:.1f}x, FASCIA/PFASCIA "
+          f"{secs['fascia'] / secs['pfascia']:.1f}x", flush=True)
+    # the plain plan's passive children each have one consumer: every
+    # internal node runs the fused kernel
+    if out["u12_plain_pgbsc"]["fused_spmm_ema"] == 0:
+        raise AssertionError(f"the fused kernel never launched on the pgbsc "
+                             f"path: {out['u12_plain_pgbsc']}")
+    return out
 
 
 def phase_reorder_mesh(g) -> dict:
@@ -1277,6 +1588,15 @@ def phase_profile(g, g_rmat) -> None:
     _profile("u13 chunked grid_2d(1024,1024) one coloring", q.run)
     del q
     torch.cuda.empty_cache()
+    for engine, budget in (("fascia", FASCIA_BUDGET),
+                           ("pfascia", PFASCIA_BUDGET)):
+        eng = CountingEngine(g, "u12", engine=engine, plan="plain",
+                             memory_budget_bytes=budget)
+        b = eng.batch_size
+        _profile(f"{engine} u12 plain grid_2d(1024,1024) batch of {b}",
+                 lambda: eng.count_iterations_batch(range(b)))
+        del eng
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1310,8 +1630,14 @@ def main() -> int:
     phase_parity_census()
     phase_parity_census10()
     phase_parity_gather()
+    phase_parity_rowmajor()
+    phase_parity_backends()
     _sync()
     by_path = {"u12_grid": phase_full(g)}
+    _sync()
+    by_path["u12_runner"] = phase_runner(g)
+    _sync()
+    by_path.update(phase_regimes(g))
     _sync()
     by_path["census10_grid"], batch_a, group_a, c_p, shapes_a = \
         phase_census_full(g)

@@ -52,8 +52,8 @@ class CountQuery:
     fused engine's device tables through the executor's memory model
     (colorset chunking where one coloring does not fit); ``reorder``
     ("rcm" or "degree") permutes the graph once per engine for locality,
-    with results mapped back to the caller's vertex ids. ``engine`` is
-    the reference's field; the port runs ``"pgbsc"``."""
+    with results mapped back to the caller's vertex ids. ``engine`` picks
+    ``"pgbsc"`` or the paper's baselines ``"fascia"`` / ``"pfascia"``."""
 
     templates: tuple[TemplateSpec, ...]
     rel_stderr: float | None = None

@@ -1,6 +1,24 @@
-"""The PGBSC counting engine on PyTorch (paper §4.3-4.5).
+"""The three counting engines on PyTorch: FASCIA, PFASCIA, PGBSC (paper
+§3-4).
 
-Combination-major ``(B, C, N)`` count tables, one SpMM ``Y = M_p @ A``
+All three compute the number of colorful rooted embeddings of each
+sub-template, bottom-up over the execution plan, in the paper's three
+regimes:
+
+* ``fascia``   Algorithm 1: row-major ``(B, N, C)`` tables and a padded
+               neighbor (ELL) sweep recomputed for every (color set,
+               split) pair — O(E * C(k,t) * C(t,t_p)) per sub-template.
+* ``pfascia``  + pruning (§4.1-4.2): one sweep per distinct passive child,
+               hoisted out of the split loop. Still row-major.
+* ``pgbsc``    + GraphBLAS (§4.3-4.5), below.
+
+The row-major engines run torch's own ops on either device (the
+reference's are XLA scans, no Pallas kernel): the sweep adds the neighbor
+table's columns in order, accumulating in the accumulator dtype, and the
+combine adds the splits in order. FASCIA's per-split sweep is the paper's
+§3.1 redundancy, kept on purpose: the baseline's cost is the point.
+
+PGBSC: combination-major ``(B, C, N)`` count tables, one SpMM ``Y = M_p @ A``
 per distinct passive child (over the BSR blocks or, with
 ``spmm_method="gather"``, the edge stream) and an eMA per plan node — or
 both in one fused kernel launch where the passive child has a single
@@ -15,14 +33,17 @@ one chunk-accumulate launch a chunk). ``reorder="rcm" | "degree"`` walks
 the plan on a relabelled graph, with colorings and root tables mapped at
 the engine's boundary.
 
-A port of the JAX package's ``core/engines.py`` for ``engine="pgbsc"``,
-one template or a fused bundle of same-k templates. The FASCIA/PFASCIA
-engines and the ``segment``/``ell``/``dense`` SpMM backends are not
-ported yet and raise ``NotImplementedError`` (see ``ROADMAP.md``).
+A port of the JAX package's ``core/engines.py``, one template or a fused
+bundle of same-k templates on each engine. An explicit batch dimension
+takes the place of the reference's ``jax.vmap``. Each coloring's total
+is summed in float64 from its own root table, exactly for these integer
+counts, so it is bitwise independent of the batch it ran in (the
+runner's resume-equals-straight invariant).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from math import comb
 
@@ -43,14 +64,43 @@ from repro_torch.kernels.spmm import ops as spmm_ops
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import tracing as _tracing
 
-__all__ = ["CountingEngine"]
+__all__ = ["CountingEngine", "WorkEstimate", "build_engine", "ENGINES"]
 
-_TODO = "not ported yet (ROADMAP.md, Queue 1)"
+ENGINES = ("fascia", "pfascia", "pgbsc")
+
+
+@dataclasses.dataclass
+class WorkEstimate:
+    """Static op counts for ONE coloring (the reference's).
+
+    All per-coloring fields share units, so flops/bytes ratios are valid
+    arithmetic intensities. ``table_bytes`` is dtype-aware (C(k,t) x N x
+    itemsize summed over internal plan nodes); ``batch`` records the
+    engine's dispatch batch size, and the ``dispatch_*`` properties give
+    the per-dispatch totals.
+    """
+
+    spmm_flops: int = 0
+    ema_flops: int = 0
+    table_bytes: int = 0
+    batch: int = 1
+
+    @property
+    def total_flops(self) -> int:
+        return self.spmm_flops + self.ema_flops
+
+    @property
+    def dispatch_flops(self) -> int:
+        return self.total_flops * self.batch
+
+    @property
+    def dispatch_table_bytes(self) -> int:
+        return self.table_bytes * self.batch
 
 
 class CountingEngine:
     """Counts colorful embeddings of one template — or a fused bundle of
-    same-k templates — for given colorings.
+    same-k templates — for given colorings, on one of :data:`ENGINES`.
 
     :meth:`count_colorful` takes an ``(n,)`` coloring and returns the sum
     over the root table (= alpha x #colorful copies) and the root table;
@@ -69,14 +119,18 @@ class CountingEngine:
 
     ``memory_budget_bytes`` becomes the coloring batch size through the
     executor's memory model (fused nodes are charged no neighbor-sum
-    table); when even one coloring exceeds it, the model chunks passive
-    colour sets (:attr:`schedule` ``.chunk_map``), and where even
-    single-row chunks do not fit it runs its best effort at batch 1 with
-    ``exec_choice.fits`` False, as the JAX package does. ``batch_size``
-    overrides the derived batch. ``reorder`` ("rcm" or "degree") permutes
-    the graph once here; callers pass colorings and read root tables in
-    their own vertex ids. ``device=None`` runs on CUDA and raises without
-    a card; ``device="cpu"`` runs the kernels' plain versions.
+    table; FASCIA caches no passive transform); when even one coloring
+    exceeds it, the PGBSC model chunks passive colour sets (:attr:`schedule`
+    ``.chunk_map``), and where even single-row chunks do not fit — or on
+    the row-major engines, which do not chunk — it runs its best effort at
+    batch 1 with ``exec_choice.fits`` False, as the JAX package does. The
+    row-major engines' sweep and split temporaries (a few ``(B, N, S)``
+    buffers at the widest node) lie outside the model, as in the
+    reference. ``batch_size`` overrides the derived batch. ``reorder``
+    ("rcm" or "degree") permutes the graph once here; callers pass
+    colorings and read root tables in their own vertex ids.
+    ``device=None`` runs on CUDA and raises without a card;
+    ``device="cpu"`` runs the kernels' plain versions.
     """
 
     def __init__(self, g: Graph, template, engine: str = "pgbsc",
@@ -85,12 +139,12 @@ class CountingEngine:
                  memory_budget_bytes: int | None = None,
                  fuse_spmm_ema: bool = True, reorder: str | None = None,
                  device=None):
-        if engine != "pgbsc":
-            raise NotImplementedError(f"engine {engine!r} is {_TODO}")
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; choose from "
+                             f"{ENGINES}")
         if spmm_method not in spmm_ops.METHODS:
-            raise NotImplementedError(
-                f"SpMM backend {spmm_method!r} is {_TODO}; the port's "
-                f"backends are {spmm_ops.METHODS}")
+            raise ValueError(f"unknown SpMM backend {spmm_method!r}; "
+                             f"choose from {spmm_ops.METHODS}")
         if reorder not in (None, "", *ORDERINGS):
             raise ValueError(f"unknown reorder {reorder!r}; "
                              f"choose from {sorted(ORDERINGS)} or None")
@@ -158,7 +212,7 @@ class CountingEngine:
                 "plain": self.template.plan, "dedup": self.template.plan_dedup,
                 "optimized": self.template.plan_optimized}[plan_name]
             self.roots = (self.plan.n_nodes - 1,)
-        self.fuse_spmm_ema = bool(fuse_spmm_ema)
+        self.fuse_spmm_ema = bool(fuse_spmm_ema and engine == "pgbsc")
         # per-node fusion decisions (idx -> "admitted" | "admitted_shared" |
         # rejection reason); empty when fusion was not requested
         self.fusion_report: dict[int, str] = {}
@@ -172,12 +226,15 @@ class CountingEngine:
         keep = tuple(i for i in self.roots if i != self.plan.n_nodes - 1)
         self.exec_choice = pexec.pick_execution(
             self.plan, self.k, g.n, memory_budget_bytes=memory_budget_bytes,
-            dtype=np.dtype(f"f{dtype.itemsize}"), keep=keep,
+            dtype=np.dtype(f"f{dtype.itemsize}"),
+            passive_cache=(engine != "fascia"),
+            allow_chunking=(engine == "pgbsc"), keep=keep,
             fused=fused_nodes, fused_groups=fused_groups)
         self.schedule = self.exec_choice.schedule
         self.batch_size = int(batch_size if batch_size is not None
                               else self.exec_choice.batch_size)
         self._materialize()
+        self.work = self._estimate_work()
         self.spmm_cols_per_coloring = self._spmm_cols_per_coloring()
         # SpMM column-ops the dispatched colorings cost (the fused-plan
         # savings metric)
@@ -287,6 +344,30 @@ class CountingEngine:
                                             device=self.device)
         else:
             self._order_dev = self._inv_dev = None
+        self._splits: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._chunk_walks: dict[int, ema_ops.ChunkWalk] = {}
+        self._released = False
+        # peak live table bytes seen by the executor's on_step probe
+        self._peak_bytes = 0
+        if self.engine != "pgbsc":
+            # the row-major engines: the padded neighbor table by column,
+            # (max_deg, N), its mask broadcastable over (B, N, S) tables,
+            # and each node's split columns as (L, S) index rows
+            nbr, mask = self.g.ell()
+            self._spmm_prep = self._fused_prep = None
+            self._nbr = torch.as_tensor(nbr.T, dtype=torch.int64
+                                        ).contiguous().to(self.device)
+            self._mask = torch.as_tensor(mask.T[:, :, None]).to(
+                device=self.device, dtype=accum_dtype(self.dtype))
+            for idx, node in enumerate(self.plan.nodes):
+                if not node.is_leaf:
+                    ia, ip = cs.split_tables(
+                        self.k, node.size, self.plan.nodes[node.active].size)
+                    self._splits[idx] = tuple(
+                        torch.as_tensor(t.T, dtype=torch.int64)
+                        .contiguous().to(self.device) for t in (ia, ip))
+            return
+        self._nbr = self._mask = None
         self._spmm_prep = spmm_ops.prepare(self.g, self.spmm_method,
                                            dtype=self.dtype,
                                            device=self.device)
@@ -303,8 +384,6 @@ class CountingEngine:
                                                 device=self.device)
         # static split tables per internal plan node, and the chunked pair
         # walk of each node the memory model chunked
-        self._splits: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        self._chunk_walks: dict[int, ema_ops.ChunkWalk] = {}
         for idx, node in enumerate(self.plan.nodes):
             if node.is_leaf:
                 continue
@@ -319,9 +398,6 @@ class CountingEngine:
                     ia, ip, comb(self.k, node.size - t_a), q)
                 self._chunk_walks[idx] = ema_ops.chunk_walk(pack,
                                                             self.device)
-        self._released = False
-        # peak live table bytes seen by the executor's on_step probe
-        self._peak_bytes = 0
 
     def _peak_probe(self, step: int, live_bytes: int) -> None:
         """Executor ``on_step`` hook: the measured peak live table bytes,
@@ -343,6 +419,7 @@ class CountingEngine:
     def release(self) -> None:
         """Drop the device operands; the next count call rebuilds them."""
         self._spmm_prep = self._fused_prep = None
+        self._nbr = self._mask = None
         self._order_dev = self._inv_dev = None
         self._splits = {}
         self._chunk_walks = {}
@@ -366,9 +443,10 @@ class CountingEngine:
     def count_colorful_batch(self, colorings, batch_size: int | None = None):
         """Batched :meth:`count_colorful` over ``(B, n)`` colorings.
 
-        -> (totals (B,), root tables (B, 1, n)), in the accumulator dtype
-        and the storage dtype; a fused engine returns totals ``(B, T)`` and
-        a T-tuple of root-table batches. Chunks of ``batch_size`` colorings
+        -> (totals (B,), root tables (B, 1, n) — (B, n, 1) on the row-major
+        engines), in the accumulator dtype and the storage dtype; a fused
+        engine returns totals ``(B, T)`` and a T-tuple of root-table
+        batches. Chunks of ``batch_size`` colorings
         (default: the budget-derived batch) run one plan walk each; a
         ragged tail runs at its own size (eager PyTorch has no compiled
         shape to keep).
@@ -384,9 +462,10 @@ class CountingEngine:
             if self.fused:
                 return (torch.zeros((0, len(self.templates)), dtype=acc,
                                     device=self.device), ())
+            shape = ((0, 1, self.g.n) if self.engine == "pgbsc"
+                     else (0, self.g.n, 1))
             return (torch.zeros(0, dtype=acc, device=self.device),
-                    torch.zeros((0, 1, self.g.n), dtype=self.dtype,
-                                device=self.device))
+                    torch.zeros(shape, dtype=self.dtype, device=self.device))
         bs = min(batch_size or self.batch_size or b, b) or 1
         totals, roots = [], []
         for base in range(0, b, bs):
@@ -469,6 +548,19 @@ class CountingEngine:
         ks = torch.arange(self.k, dtype=colors.dtype, device=colors.device)
         return (ks[:, None] == colors[..., None, :]).to(self.dtype)
 
+    def _leaf_table_nc(self, colors: torch.Tensor) -> torch.Tensor:
+        """(..., N, k) one-hot of vertex colors — row-major leaves."""
+        ks = torch.arange(self.k, dtype=colors.dtype, device=colors.device)
+        return (colors[..., :, None] == ks).to(self.dtype)
+
+    def _totals(self, root: torch.Tensor) -> torch.Tensor:
+        """Per-coloring sums of a ``(..., R, C)`` root table in the
+        accumulator dtype. The sum runs in float64, exact for these integer
+        counts below 2^53, so a coloring's total does not depend on the
+        order the device sums it in, which may change with the batch."""
+        return root.to(torch.float64).sum(dim=(-2, -1)).to(
+            accum_dtype(self.dtype))
+
     def _run(self, colorings: torch.Tensor):
         """One plan walk for a ``(B, n)`` chunk -> (totals, root tables)."""
         b = int(colorings.shape[0])
@@ -477,11 +569,18 @@ class CountingEngine:
                 # into the engine's vertex space, and the roots back out;
                 # totals are sums over whole tables and need nothing
                 colorings = colorings.index_select(-1, self._order_dev)
-            totals, root = self._build_pgbsc()(colorings)
+            if self.engine == "pgbsc":
+                totals, root = self._build_pgbsc()(colorings)
+            else:
+                totals, root = self._build_rowmajor(
+                    pruned=self.engine == "pfascia")(colorings)
             if self._inv_dev is not None:
+                # combination-major roots keep vertices last, row-major
+                # roots second to last
                 inv = self._inv_dev
-                root = (tuple(r.index_select(-1, inv) for r in root)
-                        if self.fused else root.index_select(-1, inv))
+                vaxis = -1 if self.engine == "pgbsc" else -2
+                root = (tuple(r.index_select(vaxis, inv) for r in root)
+                        if self.fused else root.index_select(vaxis, inv))
             _tracing.sync_ready(totals)
         self.n_spmm_cols_dispatched += self.spmm_cols_per_coloring * b
         return totals, root
@@ -520,35 +619,98 @@ class CountingEngine:
                 m_as, m_p, [splits[m][0] for m in members],
                 [splits[m][1] for m in members], fprep)
 
-        # sub-f32 storage sums its root tables in the accumulator dtype
-        acc_dt = accum_dtype(self.dtype)
-
         def run(colors: torch.Tensor):
             leaf = self._leaf_table_cn(colors)
             outs = runner.run(leaf, passive_op=passive_op, combine=combine,
                               combine_direct=combine_direct,
                               combine_group=combine_group,
                               on_step=self._peak_probe, outputs=self.roots)
-            if not self.fused:
-                root = outs[0]
-                return root.to(acc_dt).sum(dim=(-2, -1)), root
-            # one fused walk, one (..., T) totals vector — template j's
-            # entry comes from its own root table
-            totals = torch.stack(
-                [r.to(acc_dt).sum(dim=(-2, -1)) for r in outs], dim=-1)
-            return totals, outs
+            return self._root_totals(outs)
 
         return run
+
+    def _root_totals(self, outs):
+        """(totals, root) of one walk's outputs; a fused walk gives one
+        (..., T) totals vector, template j's entry from its own root."""
+        if not self.fused:
+            return self._totals(outs[0]), outs[0]
+        return torch.stack([self._totals(r) for r in outs], dim=-1), outs
+
+    def _build_rowmajor(self, pruned: bool):
+        """FASCIA / PFASCIA: row-major (B, N, C) tables + the ELL sweep.
+
+        Every step keeps the reference's order: the sweep adds neighbor
+        columns d = 0, 1, ... and the combine splits l = 0, 1, ... into an
+        accumulator of the accumulator dtype, cast down once. Gathers go
+        into buffers reused across columns and splits, so a step holds a
+        few ``(B, N, S)`` temporaries whatever its split count."""
+        splits, nbr, mask = self._splits, self._nbr, self._mask
+        runner = pexec.PlanExecutor(self.plan, self.schedule)
+        acc_dt = accum_dtype(self.dtype)
+
+        def nbr_sum(m_cols, acc=None, buf=None):
+            # out[b, i, r] = sum_d m_cols[b, nbr[d, i], r] * mask[d, i]
+            return spmm_ops.ell_sweep(m_cols, nbr, mask, -2, acc,
+                                      buf).to(m_cols.dtype)
+
+        def passive_op(p_idx, m_p):
+            # PFASCIA: one neighbor sweep per distinct passive set
+            return nbr_sum(m_p)
+
+        def combine(idx, m_a, y_p):
+            ia, ip = splits[idx]
+            shape = m_a.shape[:-1] + (ia.shape[1],)
+            acc = torch.zeros(shape, dtype=acc_dt, device=m_a.device)
+            g_a = torch.empty(shape, dtype=m_a.dtype, device=m_a.device)
+            g_p = torch.empty(shape, dtype=y_p.dtype, device=y_p.device)
+            for l in range(ia.shape[0]):
+                torch.index_select(m_a, -1, ia[l], out=g_a)
+                torch.index_select(y_p, -1, ip[l], out=g_p)
+                acc.addcmul_(g_a, g_p)
+            return acc.to(self.dtype)
+
+        def combine_direct(idx, m_a, m_p):
+            # FASCIA: the neighbor sweep is *inside* the split loop — the
+            # redundancy of paper §3.1, preserved deliberately
+            ia, ip = splits[idx]
+            shape = m_a.shape[:-1] + (ia.shape[1],)
+            out = torch.zeros(shape, dtype=acc_dt, device=m_a.device)
+            cols = torch.empty(shape, dtype=m_p.dtype, device=m_p.device)
+            sweep = torch.empty(shape, dtype=acc_dt, device=m_p.device)
+            buf = torch.empty_like(cols)
+            for l in range(ia.shape[0]):
+                torch.index_select(m_p, -1, ip[l], out=cols)
+                y_l = nbr_sum(cols, sweep, buf)       # (B, N, S) per split
+                torch.index_select(m_a, -1, ia[l], out=cols)
+                out.addcmul_(cols, y_l)
+            return out.to(self.dtype)
+
+        def run(colors: torch.Tensor):
+            leaf = self._leaf_table_nc(colors)
+            outs = runner.run(
+                leaf, passive_op=passive_op if pruned else None,
+                combine=combine, combine_direct=combine_direct,
+                on_step=self._peak_probe, outputs=self.roots)
+            return self._root_totals(outs)
+
+        return run
+
+    # ------------------------------------------------------------- analysis
+    @property
+    def flops_per_iteration(self) -> int:
+        return self.work.total_flops
 
     def _spmm_cols_per_coloring(self) -> int:
         """Static SpMM (passive-transform) column count of one coloring.
 
-        ``C(k, t_p)`` columns once per *distinct* passive child (the
-        executor's y-cache), which is where fused plans win: a passive
-        sub-template shared across templates is one SpMM for the whole
-        bundle. A shared-passive fused GROUP keeps that once-per-child
-        cost; singleton-fused and colorset-chunked nodes bypass the cache
-        and pay per consumer.
+        ``pgbsc``/``pfascia`` pay ``C(k, t_p)`` columns once per *distinct*
+        passive child (the executor's y-cache), which is where fused plans
+        win: a passive sub-template shared across templates is one SpMM for
+        the whole bundle. A shared-passive fused GROUP keeps that
+        once-per-child cost; singleton-fused and colorset-chunked nodes
+        bypass the cache and pay per consumer; ``fascia`` recomputes the
+        sweep inside the split loop (``C(k, t)`` columns per split, paper
+        §3.1).
         """
         cols = 0
         seen: set[int] = set()
@@ -560,7 +722,10 @@ class CountingEngine:
             if node.is_leaf:
                 continue
             c_p = comb(self.k, self.plan.nodes[node.passive].size)
-            if idx in group_of and chunk_map.get(idx, 1) <= 1:
+            if self.engine == "fascia":
+                t_a = self.plan.nodes[node.active].size
+                cols += comb(self.k, node.size) * comb(node.size, t_a)
+            elif idx in group_of and chunk_map.get(idx, 1) <= 1:
                 if group_of[idx] not in counted_groups:
                     counted_groups.add(group_of[idx])
                     cols += c_p
@@ -570,3 +735,29 @@ class CountingEngine:
                 seen.add(node.passive)
                 cols += c_p
         return cols
+
+    def _estimate_work(self) -> WorkEstimate:
+        w = WorkEstimate(batch=max(1, self.batch_size))
+        n, e, k = self.g.n, self.g.m, self.k
+        itemsize = self.dtype.itemsize
+        for node in self.plan.nodes:
+            if node.is_leaf:
+                continue
+            t = node.size
+            t_a = self.plan.nodes[node.active].size
+            n_sets, n_splits = comb(k, t), comb(t, t_a)
+            if self.engine == "fascia":
+                w.spmm_flops += e * n_sets * n_splits
+            else:
+                w.spmm_flops += e * comb(k, t - t_a)
+            w.ema_flops += 2 * n * n_sets * n_splits
+            w.table_bytes += itemsize * n * n_sets
+        return w
+
+
+def build_engine(g: Graph, template, engine: str = "pgbsc",
+                 **kw) -> CountingEngine:
+    """Convenience constructor (see CountingEngine). ``template`` accepts a
+    TreeTemplate / TemplateSpec / registry name, or a list of them (equal k)
+    for a fused multi-template engine."""
+    return CountingEngine(g, template, engine=engine, **kw)

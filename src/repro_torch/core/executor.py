@@ -23,13 +23,14 @@ SpMM result) alive for the whole bottom-up walk. Three cooperating pieces:
   (see ``kernels/ema/ops.ema_chunked``) — k >= 13 templates then run under
   budgets where the unchunked walk cannot run at all.
 
-This module follows the JAX package's ``core/executor.py`` for the walks
-the port runs: y-cached SpMM -> eMA nodes, singleton fused nodes,
-shared-passive fused groups, colorset-chunked nodes and the kept roots of
-multi-template plans; the memory model is the reference's, byte for byte.
-It leaves out the cache-less (FASCIA) walks, which come over with their
-engines (ROADMAP.md). One more change: :meth:`PlanExecutor._live_bytes`
-sizes torch tensors.
+All three engines (fascia / pfascia / pgbsc) ride the same
+:class:`PlanExecutor`; they differ only in the callbacks supplied
+(neighbor sweep vs. SpMM passive transform, split loop vs. kernel eMA
+combine, and no cached transform at all for FASCIA).
+
+A copy of the JAX package's ``core/executor.py``: liveness, schedules and
+the memory model are the reference's, byte for byte, for every engine.
+One change: :meth:`PlanExecutor._live_bytes` sizes torch tensors.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from repro_torch.obs import tracing as _tracing
 __all__ = [
     "Schedule", "ExecutionChoice", "PlanExecutor",
     "liveness", "compute_schedule", "simulate_peak_rows",
-    "peak_table_bytes", "pick_execution",
+    "peak_table_bytes", "keep_everything_bytes", "pick_execution",
     "DEFAULT_MEMORY_BUDGET_BYTES", "MAX_AUTO_BATCH", "PAIR_BLOCK",
 ]
 
@@ -89,7 +90,12 @@ class Schedule:
         run as a single shared-passive launch: the members sit consecutively
         in ``order`` and all their tables materialize at the group's first
         member's step (the leader), with the SpMM leg paid once for the
-        whole group. Every group member is also listed in ``fused``.
+        whole group. Every group member must also be listed in ``fused``
+        (liveness treats members as direct passive consumers either way).
+    ``passive_cache``
+        Whether the walk materializes/caches the passive transform
+        (SpMM / hoisted neighbor sum). False for FASCIA, whose neighbor
+        sweep lives inside the split loop (paper §3.1).
     ``keep``
         Extra output nodes (beyond the implicit last node) that are never
         freed — fused multi-template plans keep every template's root table
@@ -99,10 +105,11 @@ class Schedule:
     order: tuple[int, ...]
     free_tables: tuple[tuple[int, ...], ...]
     free_y: tuple[tuple[int, ...], ...]
+    chunks: tuple[tuple[int, int], ...] = ()
+    passive_cache: bool = True
     keep: tuple[int, ...] = ()
     fused: tuple[int, ...] = ()
     fused_groups: tuple[tuple[int, ...], ...] = ()
-    chunks: tuple[tuple[int, int], ...] = ()
 
     @property
     def chunk_map(self) -> dict[int, int]:
@@ -170,24 +177,25 @@ def _regroup_order(order, groups):
     return tuple(out)
 
 
-def liveness(plan, order, *, chunks: dict[int, int] | None = None,
+def liveness(plan, order, *, passive_cache: bool = True,
+             chunks: dict[int, int] | None = None,
              keep: tuple[int, ...] = (),
-             fused: tuple[int, ...] = ()
+             fused: tuple[int, ...] = (),
              ) -> tuple[tuple[tuple[int, ...], ...],
                         tuple[tuple[int, ...], ...]]:
     """Last-use analysis -> (free_tables, free_y), parallel to ``order``.
 
     A node table's life ends at the latest of: every step consuming it as
-    the *active* child; every chunked/fused step consuming it as the
+    the *active* child; every chunked/fused/uncached step consuming it as the
     *passive* child directly; the step that converts it into its cached
-    y-entry (the first unchunked, unfused passive consumer in ``order``). A
-    y-cache entry dies at its last such consumer. The root table is never freed (it is
-    the result); neither is any node in ``keep`` — the extra output roots
-    of a fused multi-template plan.
+    y-entry (the first unchunked passive consumer in ``order``). A y-cache
+    entry dies at its last unchunked passive consumer. The root table is
+    never freed (it is the result); neither is any node in ``keep`` —
+    the extra output roots of a fused multi-template plan.
     """
     pos = _validate_order(plan, order)
-    fset = frozenset(fused)
     cmap = dict(chunks or {})
+    fset = frozenset(fused)
     n = plan.n_nodes
     table_last = {i: pos[i] for i in range(n)}
     y_steps: dict[int, list[int]] = {}
@@ -196,7 +204,8 @@ def liveness(plan, order, *, chunks: dict[int, int] | None = None,
             continue
         s = pos[idx]
         table_last[node.active] = max(table_last[node.active], s)
-        if cmap.get(idx, 1) > 1 or idx in fset:
+        direct = (not passive_cache) or cmap.get(idx, 1) > 1 or idx in fset
+        if direct:
             table_last[node.passive] = max(table_last[node.passive], s)
         else:
             y_steps.setdefault(node.passive, []).append(s)
@@ -206,9 +215,9 @@ def liveness(plan, order, *, chunks: dict[int, int] | None = None,
         # the y entry itself lives until its last consumer (max step)
         table_last[p] = max(table_last[p], min(steps))
         y_last[p] = max(steps)
+    keepset = {n - 1} | set(keep)
     free_tables: list[tuple[int, ...]] = [() for _ in order]
     free_y: list[tuple[int, ...]] = [() for _ in order]
-    keepset = {n - 1} | set(keep)
     for i, last in table_last.items():
         if i not in keepset:
             free_tables[last] = free_tables[last] + (i,)
@@ -221,9 +230,10 @@ def liveness(plan, order, *, chunks: dict[int, int] | None = None,
 # the analytic memory model (row units; bytes = rows * n * itemsize * batch)
 # --------------------------------------------------------------------------
 def _step_peaks(plan, k: int, order, free_tables, free_y, *,
-                chunks: dict[int, int],
+                passive_cache: bool, chunks: dict[int, int],
                 fused: frozenset[int] = frozenset(),
-                fused_groups: tuple[tuple[int, ...], ...] = ()) -> list[int]:
+                fused_groups: tuple[tuple[int, ...], ...] = (),
+                pair_block: int = PAIR_BLOCK) -> list[int]:
     """Modeled live table rows at each step of the walk (working buffers
     included). Mirrors :meth:`PlanExecutor.run` exactly, including the
     mid-step release of a passive table right after its y entry is built
@@ -260,12 +270,12 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
                 # chunked: m_a and m_p stay live throughout; the extras are
                 # one passive chunk, one pair-block term buffer, the output
                 chunk_r = -(-rows[node.passive] // q)
-                peaks.append(cur() + chunk_r + PAIR_BLOCK + out_r)
+                peaks.append(cur() + chunk_r + pair_block + out_r)
             elif idx in group_of:
                 # shared-passive group: every member's table materializes at
                 # the leader step (one launch); later member steps add nothing
                 grp = group_of[idx]
-                if not any(m in live_t for m in grp):
+                if idx not in live_t and not any(m in live_t for m in grp):
                     peaks.append(cur() + sum(rows[m] for m in grp))
                     for m in grp:
                         live_t[m] = rows[m]
@@ -275,6 +285,10 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
                 # fused SpMM->eMA kernel: the neighbor-sum table lives only
                 # in shared memory — no device rows beyond the output table
                 peaks.append(cur() + out_r)
+            elif not passive_cache:
+                # FASCIA direct combine: the per-split neighbor sweep uses
+                # a working buffer as wide as the output
+                peaks.append(cur() + 2 * out_r)
             else:
                 p = node.passive
                 created = p not in live_y
@@ -298,12 +312,14 @@ def _step_peaks(plan, k: int, order, free_tables, free_y, *,
     return peaks
 
 
-def simulate_peak_rows(plan, k: int, schedule: Schedule) -> int:
+def simulate_peak_rows(plan, k: int, schedule: Schedule,
+                       pair_block: int = PAIR_BLOCK) -> int:
     """Modeled peak live table rows (1 row = one length-N float vector)."""
     peaks = _step_peaks(plan, k, schedule.order, schedule.free_tables,
-                        schedule.free_y, chunks=schedule.chunk_map,
-                        fused=schedule.fused_set,
-                        fused_groups=schedule.fused_groups)
+                        schedule.free_y, passive_cache=schedule.passive_cache,
+                        chunks=schedule.chunk_map, fused=schedule.fused_set,
+                        fused_groups=schedule.fused_groups,
+                        pair_block=pair_block)
     return max(peaks) if peaks else 0
 
 
@@ -321,10 +337,33 @@ def peak_table_bytes(plan, k: int, n: int, batch: int = 1,
     return simulate_peak_rows(plan, k, schedule) * n * itemsize * batch
 
 
+def keep_everything_bytes(plan, k: int, n: int, batch: int = 1,
+                          dtype=np.float32, passive_cache: bool = True
+                          ) -> int:
+    """Footprint of the pre-executor walk: every node table and every
+    y-cache SpMM entry stays live until the end of the plan."""
+    rows = 0
+    leaf_seen = False
+    y_seen: set[int] = set()
+    for node in plan.nodes:
+        if node.is_leaf:
+            if not leaf_seen:      # all leaves alias one (k, N) one-hot
+                rows += k
+                leaf_seen = True
+            continue
+        rows += comb(k, node.size)
+        if passive_cache and node.passive not in y_seen:
+            rows += comb(k, plan.nodes[node.passive].size)
+            y_seen.add(node.passive)
+    itemsize = np.dtype(dtype).itemsize
+    return rows * n * itemsize * batch
+
+
 # --------------------------------------------------------------------------
 # scheduling
 # --------------------------------------------------------------------------
-def _greedy_order(plan, k: int, *, chunks: dict[int, int],
+def _greedy_order(plan, k: int, *, passive_cache: bool,
+                  chunks: dict[int, int],
                   keep: tuple[int, ...] = (),
                   fused: frozenset[int] = frozenset()) -> list[int]:
     """Greedy list scheduling: repeatedly evaluate the ready internal node
@@ -348,7 +387,9 @@ def _greedy_order(plan, k: int, *, chunks: dict[int, int],
     for idx in internal:
         node = plan.nodes[idx]
         refs[buf(node.active)] = refs.get(buf(node.active), 0) + 1
-        if chunks.get(idx, 1) > 1 or idx in fused:
+        direct = (not passive_cache) or chunks.get(idx, 1) > 1 \
+            or idx in fused
+        if direct:
             refs[buf(node.passive)] = refs.get(buf(node.passive), 0) + 1
         else:
             if node.passive not in y_refs:
@@ -373,11 +414,13 @@ def _greedy_order(plan, k: int, *, chunks: dict[int, int],
             peak = cur + -(-rows[node.passive] // q) + PAIR_BLOCK + out_r
         elif idx in fused:
             peak = cur + out_r
+        elif not passive_cache:
+            peak = cur + 2 * out_r
         else:
             creates = node.passive not in live_y
             peak = cur + (rows[node.passive] if creates else 0) + out_r
         after = cur + out_r
-        direct = q > 1 or idx in fused
+        direct = (not passive_cache) or q > 1 or idx in fused
         dead: set[object] = set()
         if refs.get(buf(node.active), 0) == 1:
             dead.add(buf(node.active))
@@ -400,7 +443,8 @@ def _greedy_order(plan, k: int, *, chunks: dict[int, int],
                  and plan.nodes[i].passive in done]
         pick = min(ready, key=lambda i: step_cost(i) + (i,))
         node = plan.nodes[pick]
-        direct = chunks.get(pick, 1) > 1 or pick in fused
+        q = chunks.get(pick, 1)
+        direct = (not passive_cache) or q > 1 or pick in fused
 
         def consume(b: object) -> None:
             refs[b] = refs.get(b, 0) - 1
@@ -425,6 +469,7 @@ def _greedy_order(plan, k: int, *, chunks: dict[int, int],
 
 
 def compute_schedule(plan, k: int | None = None, *,
+                     passive_cache: bool = True,
                      chunks: dict[int, int] | None = None,
                      order_mode: str = "auto",
                      keep: tuple[int, ...] = (),
@@ -438,8 +483,8 @@ def compute_schedule(plan, k: int | None = None, *,
     simulates both and keeps the one with the smaller modeled peak.
     ``keep`` lists extra output nodes never to free (fused-plan roots);
     ``fused`` lists nodes running the fused SpMM->eMA kernel (their
-    neighbor-sum table never reaches device memory — see :class:`Schedule`);
-    ``chunks`` maps colorset-chunked nodes to their chunk counts.
+    neighbor-sum table never reaches device memory — see
+    :class:`Schedule`).
     ``fused_groups`` lists shared-passive groups over ``fused`` nodes: each
     candidate order is regrouped so members run consecutively (one launch);
     a group whose regrouped order stops being topological — some member's
@@ -452,13 +497,14 @@ def compute_schedule(plan, k: int | None = None, *,
     cmap = dict(chunks or {})
     keep = tuple(sorted(set(keep)))
     fused = tuple(sorted(set(fused)))
+    fset = frozenset(fused)
     candidates: list[tuple[int, ...]] = []
     if order_mode in ("program", "auto"):
         candidates.append(tuple(range(plan.n_nodes)))
     if order_mode in ("greedy", "auto"):
-        candidates.append(tuple(_greedy_order(plan, k, chunks=cmap,
-                                              keep=keep,
-                                              fused=frozenset(fused))))
+        candidates.append(tuple(_greedy_order(
+            plan, k, passive_cache=passive_cache, chunks=cmap, keep=keep,
+            fused=fset)))
     if not candidates:
         raise ValueError(f"unknown order_mode {order_mode!r}")
     best: Schedule | None = None
@@ -482,10 +528,12 @@ def compute_schedule(plan, k: int | None = None, *,
         kept_members = {m for grp in accepted for m in grp}
         dropped = {m for grp in fused_groups for m in grp} - kept_members
         fused_c = tuple(i for i in fused if i not in dropped)
-        ft, fy = liveness(plan, order, chunks=cmap, keep=keep, fused=fused_c)
-        sched = Schedule(order=order, free_tables=ft, free_y=fy, keep=keep,
-                         fused=fused_c, fused_groups=tuple(accepted),
-                         chunks=tuple(sorted(cmap.items())))
+        ft, fy = liveness(plan, order, passive_cache=passive_cache,
+                          chunks=cmap, keep=keep, fused=fused_c)
+        sched = Schedule(order=order, free_tables=ft, free_y=fy,
+                         chunks=tuple(sorted(cmap.items())),
+                         passive_cache=passive_cache, keep=keep,
+                         fused=fused_c, fused_groups=tuple(accepted))
         peak = simulate_peak_rows(plan, k, sched)
         if best_peak is None or peak < best_peak:
             best, best_peak = sched, peak
@@ -498,6 +546,8 @@ def compute_schedule(plan, k: int | None = None, *,
 def pick_execution(plan, k: int, n: int, *,
                    memory_budget_bytes: int | None = None,
                    dtype=np.float32, max_batch: int = MAX_AUTO_BATCH,
+                   passive_cache: bool = True,
+                   allow_chunking: bool = True,
                    keep: tuple[int, ...] = (),
                    fused: tuple[int, ...] = (),
                    fused_groups: tuple[tuple[int, ...], ...] = ()
@@ -507,26 +557,28 @@ def pick_execution(plan, k: int, n: int, *,
     The batch is the largest B with ``B * peak(batch=1) <= budget`` (capped
     at ``max_batch``). ``fused`` nodes run the fused SpMM->eMA kernel and
     are charged no neighbor-sum rows, so the same budget admits a larger
-    batch; ``fused_groups`` and ``keep`` pass to :func:`compute_schedule`.
-    If even B=1 exceeds the budget, passive-axis chunk counts are doubled
-    node by node — always at the step realizing the current peak — until
-    the modeled peak fits or every chunkable node is at single-row chunks (the irreducible floor of active + passive +
-    output tables; the choice is then best-effort with ``fits=False``).
-    Shared-passive ``fused_groups`` survive only on the unchunked path:
-    once chunking starts, groups are dropped (their members return to the
-    y-cache) — a group step materializes every member's output at once,
-    the opposite of what a budget squeeze wants.
+    batch. If even B=1 exceeds the budget and ``allow_chunking``,
+    passive-axis chunk counts are doubled node by node — always at the step
+    realizing the current peak — until the modeled peak fits or every
+    chunkable node is at single-row chunks (the irreducible floor of
+    active + passive + output tables; the choice is then best-effort with
+    ``fits=False``). Shared-passive ``fused_groups`` survive only on the
+    unchunked path: once chunking starts, groups are dropped (their members
+    stay singleton-fused) — a group step materializes every member's output
+    at once, the opposite of what a budget squeeze wants.
     """
     budget = memory_budget_bytes if memory_budget_bytes is not None \
         else DEFAULT_MEMORY_BUDGET_BYTES
     itemsize = np.dtype(dtype).itemsize
     fused = tuple(sorted(set(fused)))
-    sched = compute_schedule(plan, k, keep=keep, fused=fused,
-                             fused_groups=fused_groups)
+    sched = compute_schedule(plan, k, passive_cache=passive_cache, keep=keep,
+                             fused=fused, fused_groups=fused_groups)
     per1 = simulate_peak_rows(plan, k, sched) * n * itemsize
     if per1 <= budget:
         batch = max(1, min(max_batch, budget // max(per1, 1)))
         return ExecutionChoice(int(batch), sched, per1, budget, True)
+    if not allow_chunking:
+        return ExecutionChoice(1, sched, per1, budget, False)
 
     # chunked path: drop the shared groups AND their members from fused
     # (members return to the y-cache — one SpMM per shared passive, just
@@ -540,10 +592,11 @@ def pick_execution(plan, k: int, n: int, *,
     cmap: dict[int, int] = {}
 
     def evaluate(chunk_map):
-        s = compute_schedule(plan, k, chunks=chunk_map, keep=keep,
-                             fused=fused)
+        s = compute_schedule(plan, k, passive_cache=passive_cache,
+                             chunks=chunk_map, keep=keep, fused=fused)
         p = _step_peaks(plan, k, s.order, s.free_tables, s.free_y,
-                        chunks=s.chunk_map, fused=s.fused_set)
+                        passive_cache=passive_cache, chunks=s.chunk_map,
+                        fused=s.fused_set)
         return s, p, max(p)
 
     sched, peaks, peak = evaluate(cmap)
@@ -583,17 +636,17 @@ def pick_execution(plan, k: int, n: int, *,
 class PlanExecutor:
     """Drives one scheduled plan walk; engine-specific math via callbacks.
 
-    ``run(leaf, passive_op=, combine=, combine_direct=, combine_group=,
-    on_step=, outputs=)``:
+    ``run(leaf, passive_op=, combine=, combine_direct=, on_step=)``:
 
     * ``leaf``: the shared leaf table (every leaf node aliases it);
-    * ``passive_op(p_idx, m_p)``: passive transform (SpMM), cached per
-      distinct passive child;
+    * ``passive_op(p_idx, m_p)``: passive transform (SpMM / neighbor sum),
+      cached per distinct passive child — required iff the schedule has
+      ``passive_cache=True``;
     * ``combine(idx, m_a, y_p)``: eMA of the active table with the cached
       transform;
-    * ``combine_direct(idx, m_a, m_p)``: colorset-chunked nodes and fused
-      SpMM->eMA nodes — consumes the passive *table* directly (the engine
-      picks the chunked walk or the fused kernel per node);
+    * ``combine_direct(idx, m_a, m_p)``: used for chunked nodes, fused
+      SpMM->eMA nodes, and cache-less walks (FASCIA) — consumes the passive
+      *table* directly (the engine picks chunked/fused kernel per node);
     * ``combine_group(members, m_as, m_p)``: one shared-passive launch for a
       whole ``fused_groups`` group — returns one table per member. Required
       iff the schedule carries groups; invoked at the group's first member's
@@ -621,18 +674,22 @@ class PlanExecutor:
         # torch tensors: np.dtype() does not take a torch dtype
         return sum(v.numel() * v.element_size() for v in uniq.values())
 
-    def run(self, leaf, *, passive_op, combine, combine_direct=None,
-            combine_group=None, on_step=None, outputs=None):
+    def run(self, leaf, *, passive_op=None, combine=None,
+            combine_direct=None, combine_group=None, on_step=None,
+            outputs=None):
         """Walk the schedule; returns the root table, or — when ``outputs``
         (a tuple of node indices) is given — one table per output index.
-        Every non-root output must be in the schedule's ``keep`` set."""
+        Every non-root output must be in the schedule's ``keep`` set, i.e.
+        the schedule must have been built with ``keep=`` covering it."""
         plan, sched = self.plan, self.schedule
-        fset = sched.fused_set
         chunks = sched.chunk_map
+        fset = sched.fused_set
         group_of = sched.group_of
-        if (fset - set(group_of) or chunks) and combine_direct is None:
-            raise ValueError("schedule has fused or chunked nodes; run() "
-                             "needs a combine_direct callback")
+        if sched.passive_cache and passive_op is None:
+            raise ValueError("schedule expects a passive_op "
+                             "(built with passive_cache=True)")
+        if not sched.passive_cache and combine_direct is None:
+            raise ValueError("cache-less schedule needs combine_direct")
         if group_of and combine_group is None:
             raise ValueError("schedule carries fused_groups; run() needs a "
                              "combine_group callback")
@@ -664,10 +721,11 @@ class PlanExecutor:
                 # non-leader member steps: table already present, only frees
             else:
                 m_a = tables[node.active]
-                chunked = chunks.get(idx, 1) > 1
-                direct = chunked or idx in fset
-                mode = ("chunked" if chunked else "fused" if direct
-                        else "cached")
+                direct = (not sched.passive_cache) \
+                    or chunks.get(idx, 1) > 1 or idx in fset
+                mode = ("chunked" if chunks.get(idx, 1) > 1
+                        else "fused" if idx in fset
+                        else "direct" if direct else "cached")
                 # kernel launches are asynchronous: these spans expose
                 # per-node plan structure and launch time, not device
                 # time — that belongs to the engine's dispatch span

@@ -4,6 +4,9 @@ The host-side canonical representation is CSR (numpy). Device-side formats are
 derived on demand:
 
 * ``edges``        — (src, dst) int32 arrays sorted by dst.
+* ``ell``          — padded neighbor lists (n, max_deg) for the
+                     vertex-centric (FASCIA/PFASCIA) engines and the
+                     ``ell`` SpMM backend.
 * ``gather``       — the destination-sorted edge stream with per-vertex and
                      per-destination-tile run pointers, for the gather SpMM.
 * ``bsr``          — 128x128 dense-ified adjacency tiles (block-sparse rows)
@@ -14,11 +17,11 @@ derived on demand:
 All formats represent the *reverse* traversal used by the DP: for an undirected
 graph, A is symmetric and Y[:, i] = sum_{j in N(i)} M[:, j].
 
-A copy of the JAX package's ``graph/structure.py`` without the formats of
-engines the port does not run yet (ELL lists) and without ``to_dense``;
-``fingerprint`` and ``bsr_block_stats`` give the reference's strings and
-dicts (vertex reordering publishes the block counts); ``bsr`` is vectorised (same bytes as the reference's block
-loop, tested). The reference's gather operand, ``edge_chunks``, pads every
+A copy of the JAX package's ``graph/structure.py``. ``fingerprint`` and
+``bsr_block_stats`` give the reference's strings and dicts (vertex
+reordering publishes the block counts); ``bsr`` and ``ell`` are
+vectorised (the same arrays as the reference's loops, tested). The
+reference's gather operand, ``edge_chunks``, pads every
 (destination tile, source tile) pair to 512-edge chunks so the TPU can
 densify each chunk into a 128x128 tile; the card gathers edges directly,
 so :meth:`Graph.gather_layout` keeps the plain edge stream instead: on a
@@ -160,6 +163,10 @@ class Graph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr).astype(np.int64)
 
+    @property
+    def max_degree(self) -> int:
+        return int(self.degrees.max()) if self.n else 0
+
     @cached_property
     def fingerprint(self) -> str:
         """Stable content hash of the CSR structure (32 hex chars), equal
@@ -173,6 +180,12 @@ class Graph:
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v]:self.indptr[v + 1]]
 
+    def to_dense(self) -> np.ndarray:
+        a = np.zeros((self.n, self.n), dtype=np.float32)
+        src = np.repeat(np.arange(self.n), self.degrees)
+        a[src, self.indices] = 1.0
+        return a
+
     # ------------------------------------------------------- device formats
     @cached_property
     def edges_by_dst(self) -> tuple[np.ndarray, np.ndarray]:
@@ -184,6 +197,19 @@ class Graph:
         dst = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
         src = self.indices.astype(np.int32)
         return src, dst
+
+    def ell(self) -> tuple[np.ndarray, np.ndarray]:
+        """Padded neighbor table (n, max_deg) + float mask. Row v lists v's
+        neighbors in CSR order, then padding with n-1; at least one column.
+        The reference's ``pad_value=`` is left out: nothing sets it."""
+        width = max(self.max_degree, 1)
+        nbr = np.full((self.n, width), self.n - 1, dtype=np.int32)
+        msk = np.zeros((self.n, width), dtype=np.float32)
+        row = np.repeat(np.arange(self.n, dtype=np.int64), self.degrees)
+        col = np.arange(self.m, dtype=np.int64) - self.indptr[row]
+        nbr[row, col] = self.indices
+        msk[row, col] = 1.0
+        return nbr, msk
 
     def gather_layout(self, tile: int = 128) -> GatherLayout:
         """The gather SpMM's operand: :attr:`edges_by_dst` with its run

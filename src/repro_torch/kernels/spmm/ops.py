@@ -25,6 +25,15 @@ On a CPU tensor :func:`spmm` runs the plain version (:func:`spmm_plain`,
 ``spmm.launches`` counts BSR launches, ``spmm_gather.launches`` the
 gather wrapper's calls that reach the card (each launches a transpose, a
 gather and, with hubs, a hub pass per chunk of rows).
+
+Three more backends are the JAX package's XLA ones, with no Pallas kernel
+behind them, so torch's own ops serve on either device
+(:class:`OpsPrep`): ``"segment"`` gathers the destination-sorted edge
+stream's source columns and sums each destination's run with
+``torch.segment_reduce`` (a fixed order, no atomics); ``"ell"`` adds the
+padded neighbor table's columns in order; ``"dense"`` multiplies by the
+dense adjacency (tiny graphs and the oracle). Sums of sub-f32 tables run
+in the accumulator dtype, as the kernels' do.
 """
 
 from __future__ import annotations
@@ -39,17 +48,23 @@ from repro_torch.device import accum_dtype, card_dtype_code, resolve_device
 from repro_torch.graph.structure import Graph, block_nonzero_index
 from repro_torch.kernels import _build
 
-__all__ = ["BsrPrep", "GatherPrep", "METHODS", "prepare", "from_arrays",
-           "spmm", "spmm_plain", "spmm_gather", "spmm_gather_plain",
-           "spmm_row_chunk"]
+__all__ = ["BsrPrep", "GatherPrep", "OpsPrep", "METHODS", "prepare",
+           "from_arrays", "spmm", "spmm_plain", "spmm_ops", "ell_sweep",
+           "spmm_gather",
+           "spmm_gather_plain", "spmm_row_chunk"]
 
-# operand kinds of prepare(); the JAX package's "pallas_bsr" and
-# "pallas_gather" backends
-METHODS = ("bsr", "gather")
+# operand kinds of prepare(): the JAX package's "pallas_bsr" and
+# "pallas_gather" backends, then its XLA ones
+METHODS = ("bsr", "gather", "segment", "ell", "dense")
+# the backends torch's own ops run (OpsPrep)
+OPS_METHODS = ("segment", "ell", "dense")
 
 # elements of the plain version's gathered (rows, blocks, tile) operand per
 # chunk: bounds its working memory at full graph size
 _PLAIN_CHUNK_ELEMS = 1 << 27
+# elements of the segment backend's gathered (edges, rows) block per chunk
+# of rows (the reference's _SEGMENT_TARGET_ELEMS)
+_SEGMENT_TARGET_ELEMS = 1 << 24
 # block edge the CUDA kernels are compiled for (TILE in csrc/bsr_tile.cuh)
 _KERNEL_TILE = 128
 # bytes of one vertex's slice of the gather kernel's scratch (LINE in
@@ -148,6 +163,23 @@ class GatherPrep:
         return self.n * _GATHER_LINE + self.n_segments * chunk * 4
 
 
+@dataclasses.dataclass
+class OpsPrep:
+    """The operand of a backend torch's own ops run (``OPS_METHODS``):
+    ``"segment"``: ``src`` (m,) sorted by destination and ``degrees`` (n,),
+    the run lengths; ``"ell"``: ``nbr`` (max_deg, n) neighbor ids by
+    column and ``mask`` (max_deg, n) in the storage dtype; ``"dense"``:
+    ``a`` (n, n) in the storage dtype."""
+
+    method: str
+    n: int
+    arrays: dict[str, torch.Tensor]
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.arrays.values())).device
+
+
 def from_arrays(n: int, blocks, src_tile, dst_tile, *,
                 dtype=torch.float32, device=None) -> BsrPrep:
     """A prep from the block stream as arrays (numpy or torch); builds the
@@ -191,13 +223,17 @@ def prepare(g: Graph, method: str = "bsr", *, dtype=torch.float32,
     stream, and their nonzero index, built on the host. ``"gather"``: the
     edge stream, its run pointers and the segments of its hubs (vertices
     of more than ``HUB_DEGREE`` edges). It holds no values, so ``dtype``
-    does not enter."""
+    does not enter. ``"segment"``, ``"ell"`` and ``"dense"``: the edge
+    stream, the padded neighbor table (``Graph.ell``) or the dense
+    adjacency (:class:`OpsPrep`)."""
     if method not in METHODS:
         raise ValueError(f"unknown SpMM operand {method!r}; "
                          f"choose from {METHODS}")
     device = resolve_device(device)
     if method == "gather":
         return _gather_prep(g, device, tile)
+    if method in OPS_METHODS:
+        return _ops_prep(g, method, dtype, device)
     lay = g.padded(tile).bsr_layout(tile)
     blocks = torch.zeros((lay.n_blocks, tile, tile), dtype=dtype,
                          device=device)
@@ -236,6 +272,71 @@ def _gather_prep(g: Graph, device, tile: int = 128,
         hub_vertex=torch.as_tensor(hubs.astype(np.int32), device=device),
         hub_seg_ptr=torch.as_tensor(seg_ptr.astype(np.int32), device=device),
         seg=torch.as_tensor(np.stack([first, end], axis=1), device=device))
+
+
+def _ops_prep(g: Graph, method: str, dtype, device) -> OpsPrep:
+    if method == "segment":
+        src, _ = g.edges_by_dst
+        arrays = {"src": torch.as_tensor(src, dtype=torch.int64),
+                  "degrees": torch.as_tensor(g.degrees)}
+    elif method == "ell":
+        nbr, mask = g.ell()
+        arrays = {"nbr": torch.as_tensor(nbr.T, dtype=torch.int64),
+                  "mask": torch.as_tensor(mask.T).to(dtype)}
+    else:
+        arrays = {"a": torch.as_tensor(g.to_dense()).to(dtype)}
+    return OpsPrep(method, g.n, {k: v.contiguous().to(device)
+                                 for k, v in arrays.items()})
+
+
+def ell_sweep(m: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
+              axis: int, acc: torch.Tensor | None = None,
+              buf: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum_d index_select(m, axis, nbr[d]) * mask[d]``, column d after d,
+    in the accumulator dtype: the ``"ell"`` backend's sum and the
+    row-major engines' neighbor sweep. ``nbr`` is ``(max_deg, N)``;
+    ``mask[d]`` broadcasts against one gathered copy of ``m``. ``acc``
+    (accumulator dtype) and ``buf`` (``m``'s dtype), shaped like ``m``,
+    are reused when given."""
+    if acc is None:
+        acc = torch.empty(m.shape, dtype=accum_dtype(m.dtype),
+                          device=m.device)
+    if buf is None:
+        buf = torch.empty_like(m)
+    acc.zero_()
+    for d in range(nbr.shape[0]):
+        torch.index_select(m, axis, nbr[d], out=buf)
+        acc.addcmul_(buf, mask[d])
+    return acc
+
+
+def spmm_ops(m: torch.Tensor, prep: OpsPrep) -> torch.Tensor:
+    """``Y = M @ A`` for a ``(..., C, N)`` table by torch's own ops, on
+    the table's device, in a fixed order (deterministic on the card)."""
+    if m.device != prep.device:
+        raise ValueError(f"spmm: table on {m.device}, operand on "
+                         f"{prep.device}")
+    if m.shape[-1] != prep.n:
+        raise ValueError(f"spmm: table has {m.shape[-1]} vertices, the "
+                         f"graph {prep.n}")
+    flat = m.reshape(-1, prep.n)
+    a = prep.arrays
+    if prep.method == "dense":
+        return (flat @ a["a"].to(m.dtype)).reshape(m.shape)
+    if prep.method == "ell":
+        out = ell_sweep(flat, a["nbr"], a["mask"], 1)
+        return out.to(m.dtype).reshape(m.shape)
+    acc = accum_dtype(m.dtype)
+    # segment: each destination's run of the edge stream, in stream order
+    out = torch.empty_like(flat)
+    rows = flat.shape[0]
+    step = max(1, min(rows, _SEGMENT_TARGET_ELEMS
+                      // max(1, a["src"].numel())))
+    for r0 in range(0, rows, step):
+        contrib = flat[r0:r0 + step].t().index_select(0, a["src"]).to(acc)
+        out[r0:r0 + step] = torch.segment_reduce(
+            contrib, "sum", lengths=a["degrees"], axis=0).t()
+    return out.reshape(m.shape)
 
 
 def spmm_acc(m: torch.Tensor, prep: BsrPrep) -> torch.Tensor:
@@ -287,9 +388,13 @@ def _check_operands(name: str, prep: BsrPrep, *tables: torch.Tensor) -> int:
     return card_dtype_code(prep.dtype)
 
 
-def spmm(m: torch.Tensor, prep: BsrPrep | GatherPrep) -> torch.Tensor:
+def spmm(m: torch.Tensor, prep: BsrPrep | GatherPrep | OpsPrep
+         ) -> torch.Tensor:
     """``Y = M @ A`` for a ``(..., C, N)`` table: the plain version on a
-    CPU tensor, one launch of the prep's CUDA kernel on a CUDA tensor."""
+    CPU tensor, one launch of the prep's CUDA kernel on a CUDA tensor;
+    an :class:`OpsPrep` runs torch's ops on either."""
+    if isinstance(prep, OpsPrep):
+        return spmm_ops(m, prep)
     if isinstance(prep, GatherPrep):
         return spmm_gather(m, prep)
     if m.device.type == "cpu":

@@ -92,6 +92,13 @@ ENTRY_POINTS = {
         _TINY, "u5", spmm_method="gather", **kw),
     "bundle_engine": lambda **kw: CountingEngine(
         _TINY, ["path4", "star4"], plan="dedup", **kw),
+    "fascia_engine": lambda **kw: CountingEngine(
+        _TINY, "u5", engine="fascia", **kw),
+    "pfascia_engine": lambda **kw: CountingEngine(
+        _TINY, "u5", engine="pfascia", **kw),
+    "prepare_segment": lambda **kw: spmm_ops.prepare(_TINY, "segment", **kw),
+    "prepare_ell": lambda **kw: spmm_ops.prepare(_TINY, "ell", **kw),
+    "prepare_dense": lambda **kw: spmm_ops.prepare(_TINY, "dense", **kw),
 }
 
 
@@ -107,12 +114,21 @@ def test_entry_point_defaults_to_cuda_and_runs_when_asked_for_cpu(
 def test_new_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/core/motif_features.py",
-            "src/repro_torch/api.py", "chip_smoke.py"} <= names
+            "src/repro_torch/api.py", "chip_smoke.py",
+            "src/repro_torch/core/runner.py",
+            "src/repro_torch/core/oracle.py",
+            "src/repro_torch/resilience/__init__.py",
+            "src/repro_torch/resilience/faults.py",
+            "src/repro_torch/resilience/recovery.py"} <= names
 
 
 def test_unknown_spmm_operand_raises():
     with pytest.raises(ValueError, match="gather"):
-        spmm_ops.prepare(_TINY, "ell", device="cpu")
+        spmm_ops.prepare(_TINY, "csr", device="cpu")
+    with pytest.raises(ValueError, match="segment"):
+        CountingEngine(_TINY, "u5", spmm_method="csr", device="cpu")
+    with pytest.raises(ValueError, match="pfascia"):
+        CountingEngine(_TINY, "u5", engine="fascia2", device="cpu")
 
 
 def test_card_fit_model_admits_every_u12_sole_consumer():

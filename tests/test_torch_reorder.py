@@ -207,8 +207,13 @@ def test_query_carries_reorder_and_engine():
                               ["u3", "u5"], max_iters=2, reorder="degree")
     for r, w in zip(res, want):
         assert r.estimate == pytest.approx(w.estimate, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="fascia"):
-        api.count(g, "u3", max_iters=1, engine="fascia", device="cpu")
+    # the query's engine field reaches the engine: FASCIA on the
+    # relabelled graph equals the reference's
+    got = api.count(g, "u3", max_iters=2, engine="fascia", reorder="degree",
+                    device="cpu")
+    want = ref_api.count(ref_gen.erdos_renyi(30, 3.0, seed=9), "u3",
+                         max_iters=2, engine="fascia", reorder="degree")
+    assert got.estimate == pytest.approx(want.estimate, rel=1e-6)
 
 
 def test_unknown_ordering_raises():
