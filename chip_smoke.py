@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives nine paths of the
+``src/repro_torch/csrc``) and nothing of JAX. It drives ten paths of the
 port, each with every kernel's launch counter set to 0 just before it and
 read just after:
 
@@ -38,7 +38,21 @@ read just after:
   ``"pfascia"`` over 4 at 24 GiB and ``"pgbsc"`` (default operands and
   fusion) over 8 at 32 GiB, each in whole batches timed after one untimed
   batch; the row-major engines run torch's ops (no hand-written kernel
-  launches), and iterations 0-1 agree across the three.
+  launches), and iterations 0-1 agree across the three;
+* **(S) the counting service:** the mesh written with
+  ``graph/io.save_edge_list`` and loaded with ``load_cached`` (parsed, then
+  from its ``.npz``); ``launch/serve.main`` in batch mode on it (u12 under
+  three spellings and u10, 8 iterations, 32 GiB): two engine builds for
+  four requests, one u12 group, its u12 and u10 estimates equal to
+  ``api.count``'s; a
+  one-engine ``EngineCache`` releasing evicted operands; the async QoS
+  service behind the HTTP front end on an ephemeral port (prewarmed u12,
+  three POSTs from two tenants and two classes, polled to their results,
+  ``/healthz``, ``/metrics.json``); a u13 request at 16 GiB, chunked as
+  above; the k=10 census through ``compile_query(engine_cache=)`` twice,
+  built once; and a u12 group whose two injected dispatch faults step its
+  degradation ladder to the unfused engine, then one whose four step it to
+  level 2 (the gather SpMM kernel), each with the same estimate.
 
 In order it prints:
 
@@ -76,7 +90,12 @@ In order it prints:
    PFASCIA's among them) under
    ``torch.profiler``, device time and launches by kernel, the device's
    idle share, the host's CUDA calls and the allocator's retries;
-7. the script's total seconds, one JSON line with every kernel's numbers,
+7. (S)'s ``[service]`` lines: the graph's host load times, serve's own
+   output (per-request breakdowns, span summary), the u12 group's seconds
+   per coloring beside ``api.count``'s, the cold engine build, peak and
+   released device memory, each HTTP request's time from POST to result,
+   the prewarm, a cached answer's round trip, and each step's launches;
+8. the script's total seconds, one JSON line with every kernel's numbers,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line; without a card
@@ -87,6 +106,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -571,11 +591,11 @@ def _bsr_bytes(prep) -> int:
                          prep.tile_ptr, prep.col_ptr, prep.nz_src))
 
 
-def phase_chunked_full(g, chunk_row: dict) -> dict:
+def phase_chunked_full(g, chunk_row: dict) -> tuple[dict, float]:
     """u13 on grid_2d(1024, 1024) at a 16 GiB budget through the user's
     entry point, 4 colorings: node 5 runs chunked (1,716 single-row
     chunks), node 7 fused. Then the same colorings unchunked (24 GiB,
-    batch 1). Returns the chunked run's launches."""
+    batch 1). Returns the chunked run's launches and estimate."""
     import torch
 
     from repro_torch import api
@@ -648,7 +668,7 @@ def phase_chunked_full(g, chunk_row: dict) -> dict:
                              f"{res2.estimate}")
     del eng2, res2
     torch.cuda.empty_cache()
-    return launches
+    return launches, est
 
 
 def phase_parity_rowmajor() -> None:
@@ -1334,8 +1354,9 @@ def _read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def phase_full(g) -> dict:
-    """The u12 slice at full size through the user's entry point."""
+def phase_full(g) -> tuple[dict, object]:
+    """The u12 slice at full size through the user's entry point. Returns
+    the launches and the result."""
     import torch
 
     from repro_torch import api
@@ -1362,7 +1383,7 @@ def phase_full(g) -> dict:
     if min(launches[k] for k in path) == 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    return launches
+    return launches, res
 
 
 def phase_census_full(g) -> tuple[dict, int, int, int, dict]:
@@ -1599,6 +1620,476 @@ def phase_profile(g, g_rmat) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------- (S) the service
+SERVICE_BUDGET = 32 * GIB      # u12 at batch 4, as api.count in phase_full
+
+
+def _u12_relabelled() -> str:
+    """u12's edges under v -> 11 - v, in the CLI's ``"u-v,...@root"``
+    form: a third spelling of the same rooted tree."""
+    from repro_torch.core.templates import get_template
+    t = get_template("u12")
+    k = t.k
+    return ",".join(f"{k - 1 - u}-{k - 1 - v}" for u, v in t.edges) + \
+        f"@{k - 1 - t.root}"
+
+
+def _service_counts(total: dict) -> dict:
+    """Read the launches since the last reset into ``total``."""
+    got = _read_counts()
+    for name, c in got.items():
+        total[name] = total.get(name, 0) + c
+    return got
+
+
+def _service_load(g, tmp: str):
+    """Step 1: the mesh written as an edge list and loaded as a user loads
+    one, parsed once and then read from the ``.npz`` cache."""
+    from repro_torch.graph.io import load_cached, save_edge_list
+
+    path = os.path.join(tmp, "grid_1024.txt")
+    t0 = time.perf_counter()
+    save_edge_list(g, path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g1 = load_cached(path)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g2 = load_cached(path)
+    t_npz = time.perf_counter() - t0
+    print(f"[service] step 1: edge list {os.path.getsize(path)} B written in "
+          f"{t_save:.2f} s; load_cached parses it in {t_parse:.2f} s, the "
+          f"second load reads the .npz ({os.path.getsize(path + '.cache.npz')}"
+          f" B) in {t_npz:.2f} s (host); fingerprint {g2.fingerprint[:12]}",
+          flush=True)
+    for loaded in (g1, g2):
+        if loaded.fingerprint != g.fingerprint or loaded.m != g.m:
+            raise AssertionError("the loaded mesh is not the generator's")
+    return path, g2
+
+
+def _service_batch(path: str, tmp: str, res_u12, total: dict):
+    """Step 2: batch mode through ``launch/serve.main``, in-process, held
+    to ``phase_full``'s ``api.count`` result ``res_u12``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import tracing
+    from repro_torch.obs.validate import validate_snapshot
+
+    metrics_out = os.path.join(tmp, "metrics.json")
+    argv = ["--edge-list", path, "--templates", "u12,u12,u10",
+            "--template-edges", _u12_relabelled(), "--iters", "8",
+            "--round-size", "8", "--memory-budget-mb", "32768",
+            "--metrics-out", metrics_out, "--trace",
+            "--ledger", os.path.join(tmp, "ledger_batch")]
+    tracer = tracing.set_tracer(tracing.Tracer())
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+    finally:
+        tracing.configure(enabled=False, sync=False)
+        out = buf.getvalue()
+        lines = out.splitlines()
+        # serve's own lines, without the results object it prints last
+        last = max((i for i, ln in enumerate(lines) if ln == "{"),
+                   default=len(lines))
+        for ln in lines[:last]:
+            print(f"[service]   serve: {ln}", flush=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _service_counts(total)
+    results = json.loads("\n".join(lines[last:]))
+    svc = results.pop("_service")
+    with open(metrics_out) as f:
+        snap = validate_snapshot(json.load(f))
+    levels = {k: v for k, v in snap["gauges"].items()
+              if k.startswith("degradation_level")}
+    dispatch = [c for r in tracer.roots if r.name == "service.round"
+                for c in r.children if c.name == "service.dispatch"]
+    u12_disp = [d for d in dispatch if d.attrs.get("tenants") == 3]
+    u12 = {k: v for k, v in results.items() if not k.endswith(":u10")}
+    creator = results[min(u12)]
+    secs_u12 = sum(d.seconds for d in u12_disp) / 8
+    print(f"[service] step 2: serve.main batch mode rc={rc} in {wall:.2f} s: "
+          f"requests={list(results)} (all done) engine builds={svc['engine_cache']['builds']} groups="
+          f"{svc['groups']} unique_iterations={svc['unique_iterations']}; "
+          f"u12 estimate={creator['estimate']!r} (api.count "
+          f"{res_u12.estimate!r}); u12 group s_per_coloring={secs_u12:.4f} "
+          f"(its dispatch span, 8 colorings, ledger checkpoint included; "
+          f"api.count {res_u12.seconds / res_u12.iterations:.4f}, the "
+          f"process's first full-size count); cold engine build "
+          f"{creator['breakdown']['compile_s']:.3f} s; launches={launches} "
+          f"max_memory_allocated={peak} ({peak / GIB:.2f} GiB); "
+          f"degradation_level gauges={levels}", flush=True)
+    if rc != 0 or len(results) != 4:
+        raise AssertionError(f"serve returned {rc} with {list(results)}")
+    if svc["engine_cache"]["builds"] != 2 or svc["groups"] != 2:
+        raise AssertionError(f"4 requests built {svc['engine_cache']} in "
+                             f"{svc['groups']} groups")
+    if len(u12) != 3 or len({v["estimate"] for v in u12.values()}) != 1 \
+            or sum(v["shared_group"] for v in u12.values()) != 2:
+        raise AssertionError(f"the three u12 spellings did not share: {u12}")
+    if not math.isclose(creator["estimate"], res_u12.estimate,
+                        rel_tol=PATH_RTOL):
+        raise AssertionError(f"served u12 {creator['estimate']} != "
+                             f"api.count {res_u12.estimate}")
+    if not levels or any(v != 0 for v in levels.values()):
+        raise AssertionError(f"degradation levels {levels}")
+    if len(u12_disp) != 1:
+        raise AssertionError(f"u12 dispatch spans {u12_disp}")
+    if min(launches[k] for k in ("spmm_bsr", "ema", "fused_spmm_ema")) == 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    return creator["estimate"], results[[k for k in results
+                                         if k.endswith(":u10")][0]]["estimate"]
+
+
+def _service_u10_reference(g, est_u10: float) -> None:
+    """Step 2a: the served u10 estimate held to ``api.count``'s on the
+    same graph, template, iterations, seed and budget (outside the
+    service, so a fault of the service at u10's batch and shapes shows)."""
+    from repro_torch import api
+
+    t0 = time.perf_counter()
+    res = api.count(g, "u10", max_iters=8, seed=0,
+                    memory_budget_bytes=SERVICE_BUDGET)
+    _sync()
+    print(f"[service] step 2a: served u10 estimate={est_u10!r} vs api.count "
+          f"{res.estimate!r} ({time.perf_counter() - t0:.2f} s, rtol "
+          f"{PATH_RTOL:g})", flush=True)
+    if not math.isclose(est_u10, res.estimate, rel_tol=PATH_RTOL):
+        raise AssertionError(f"served u10 {est_u10} != api.count "
+                             f"{res.estimate}")
+    del res
+    _reset_counts()
+
+
+def _service_release(g) -> None:
+    """Step 2b: a one-engine cache evicts (releases) the u12 and u10
+    engines as two more templates come in."""
+    import gc
+
+    import torch
+
+    from repro_torch.service import EngineCache
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = EngineCache(max_entries=1)
+    kw = dict(device="cuda", memory_budget_bytes=SERVICE_BUDGET)
+    base = torch.cuda.memory_allocated()
+    mem = []
+    for tname in ("u12", "u10", "u5"):
+        cache.get(g, tname, **kw)
+        mem.append(torch.cuda.memory_allocated() - base)
+    operand = mem[0]
+    print(f"[service] step 2b: EngineCache(max_entries=1), u12 then u10 then "
+          f"u5: memory_allocated above the start {mem} B (one operand "
+          f"{operand} B); evictions={cache.evictions}; both evicted engines "
+          f"released", flush=True)
+    if cache.evictions != 2 or max(mem) > 1.05 * operand:
+        raise AssertionError(f"evicted engines kept their operands: {mem}")
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _service_profile(g, tmp: str) -> None:
+    """Step 2c: one service round of a u12 request at batch 4 (attach on
+    a warm engine, one dispatch, the ledger checkpoint, retirement) under
+    ``torch.profiler``, beside phase_profile's ``api.count`` batch."""
+    import gc
+
+    import torch
+
+    from repro_torch.service import (CountingService, CountRequest,
+                                     EngineCache)
+
+    cache = EngineCache()
+    svc = CountingService(ledger_root=os.path.join(tmp, "ledger_prof"),
+                          round_size=4, default_max_iters=4,
+                          memory_budget_bytes=SERVICE_BUDGET,
+                          engine_cache=cache)
+    svc.add_graph("g", g)
+    cache.get(g, "u12", "pgbsc", "optimized", **svc.engine_kw)
+    svc.submit(CountRequest("g", "u12", max_iters=4, seed=1))
+    _profile("service round, u12 grid_2d(1024,1024) batch of 4", svc.step)
+    if svc.stats()["unique_iterations"] != 4:
+        raise AssertionError(f"the profiled round ran {svc.stats()}")
+    del svc, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _http(base: str, path: str, body: dict | None = None):
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.load(resp)
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read() or b"{}")
+
+
+def _service_http(g, tmp: str, est_u12: float, est_u10: float,
+                  total: dict) -> None:
+    """Step 3: the async QoS service behind the HTTP front end on an
+    ephemeral port, prewarmed with u12."""
+    import gc
+
+    import torch
+
+    from repro_torch.obs.validate import validate_snapshot
+    from repro_torch.service import AsyncCountingService, EngineCache
+    from repro_torch.service.frontend import serve_forever
+
+    svc = AsyncCountingService(
+        ledger_root=os.path.join(tmp, "ledger_http"), round_size=8,
+        default_max_iters=8, memory_budget_bytes=SERVICE_BUDGET,
+        engine_cache=EngineCache(), idle_wait_s=0.01)
+    svc.add_graph("g", g)
+    _reset_counts()
+    httpd = serve_forever(svc, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        svc.prewarm("g", "u12")
+        while not svc.engine_cache.has(g, "u12", **svc.engine_kw):
+            time.sleep(0.01)
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("prewarm never built u12")
+        t_warm = time.perf_counter() - t0
+        posts = [({"templates": ["u12"], "qos": {"class": "interactive",
+                                                 "tenant": "alice"}}, est_u12),
+                 ({"templates": ["u12"], "qos": {"class": "interactive",
+                                                 "tenant": "bob"}}, est_u12),
+                 ({"templates": ["u10"], "qos": {"class": "batch",
+                                                 "tenant": "etl"}}, est_u10)]
+        sent = []
+        for body, want in posts:
+            body = dict(body, graph="g", max_iters=8, seed=0, wait=False)
+            t_post = time.perf_counter()
+            code, out = _http(base, "/count", body)
+            if code != 202:
+                raise AssertionError(f"POST /count -> {code} {out}")
+            sent.append((out["requests"][0]["id"], t_post, want, body))
+        walls = {}
+        while len(walls) < len(sent):
+            for rid, t_post, want, body in sent:
+                if rid in walls:
+                    continue
+                code, out = _http(base, f"/result/{rid}")
+                if code == 200:
+                    walls[rid] = (time.perf_counter() - t_post,
+                                  out["result"]["estimate"], want, body)
+                elif code != 202:
+                    raise AssertionError(f"/result/{rid} -> {code} {out}")
+            time.sleep(0.005)
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the HTTP requests never finished")
+        # a repeat of a finished question: the estimate cache answers it,
+        # so its round trip is the front end's own cost
+        t1 = time.perf_counter()
+        code, again = _http(base, "/count", {"graph": "g",
+                                             "templates": ["u12"],
+                                             "max_iters": 8, "seed": 0})
+        t_cached = time.perf_counter() - t1
+        code_h, health = _http(base, "/healthz")
+        code_m, snap = _http(base, "/metrics.json")
+        validate_snapshot(snap)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    launches = _service_counts(total)
+    peak = torch.cuda.max_memory_allocated()
+    for rid, (wall, got, want, body) in walls.items():
+        print(f"[service] step 3: {rid} {body['templates'][0]} "
+              f"{body['qos']['class']}/{body['qos']['tenant']}: POST to "
+              f"result {wall:.3f} s, estimate {got!r}", flush=True)
+        if got != want and not math.isclose(got, want, rel_tol=PATH_RTOL):
+            raise AssertionError(f"HTTP estimate {got} != batch {want}")
+    print(f"[service] step 3: prewarm of u12 {t_warm:.3f} s; cached repeat "
+          f"POST round trip {t_cached * 1e3:.2f} ms (from_cache="
+          f"{again['requests'][0]['result']['from_cache']}); healthz "
+          f"{code_h} ok={health['ok']} groups={health['groups']}; "
+          f"/metrics.json valid ({len(snap['counters'])} counters); "
+          f"launches={launches} max_memory_allocated={peak} "
+          f"({peak / GIB:.2f} GiB); shut down cleanly", flush=True)
+    if code != 200 or not again["requests"][0]["result"]["from_cache"] \
+            or code_h != 200 or not health["ok"] or code_m != 200:
+        raise AssertionError(f"front end: {code} {again} {code_h} {health}")
+    if svc._thread is not None:
+        raise AssertionError("the dispatcher did not stop")
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _service_chunk_bundle(g, tmp: str, est_u13: float, total: dict) -> None:
+    """Step 4: a u13 request under a 16 GiB budget runs colorset-chunked;
+    the census bundle through ``compile_query(engine_cache=)`` twice
+    builds once."""
+    import gc
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.obs import metrics
+    from repro_torch.service import (CountingService, CountRequest,
+                                     EngineCache)
+
+    gc.collect()
+    _reset_counts()
+    svc = CountingService(ledger_root=os.path.join(tmp, "ledger_u13"),
+                          round_size=4, default_max_iters=4,
+                          memory_budget_bytes=16 * GIB)
+    svc.add_graph("g", g)
+    t0 = time.perf_counter()
+    rid = svc.submit(CountRequest("g", "u13", max_iters=4))
+    res = svc.run()[rid]
+    wall = time.perf_counter() - t0
+    (grp,) = svc._groups.values()
+    eng = grp.engine
+    launches = _service_counts(total)
+    print(f"[service] step 4: u13 at 16 GiB: chunk_map="
+          f"{eng.schedule.chunk_map} batch={eng.batch_size} estimate="
+          f"{res.estimate!r} (api.count {est_u13!r}) in {wall:.2f} s "
+          f"({res.breakdown['execute_s'] / 4:.4f} s a coloring after the "
+          f"build) launches={launches}", flush=True)
+    if eng.schedule.chunk_map != {5: 1716} or launches["ema_chunk_acc"] == 0:
+        raise AssertionError(f"u13 did not run chunked: "
+                             f"{eng.schedule.chunk_map} {launches}")
+    if not math.isclose(res.estimate, est_u13, rel_tol=PATH_RTOL):
+        raise AssertionError(f"served u13 {res.estimate} != {est_u13}")
+    del svc, grp, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cache = EngineCache()
+    query = api.CountQuery(templates=tuple(census_specs(10)), plan="dedup",
+                           max_iters=2, round_size=2, seed=0,
+                           memory_budget_bytes=CENSUS_BUDGET)
+    built = metrics.counter("engine_cache_builds_total")
+    runs = []
+    for _ in range(2):
+        _reset_counts()
+        b0 = built.value
+        t0 = time.perf_counter()
+        out = api.compile_query(g, query, engine_cache=cache).run()
+        runs.append((time.perf_counter() - t0, built.value - b0,
+                     _service_counts(total), [r.estimate for r in out]))
+    for i, (secs, builds, counts, _) in enumerate(runs):
+        print(f"[service] step 4: census bundle run {i + 1} through "
+              f"compile_query(engine_cache=): {secs:.2f} s, engine builds "
+              f"{builds}, launches={counts}", flush=True)
+    if runs[0][1] != 1 or runs[1][1] != 0 or cache.builds != 1:
+        raise AssertionError(f"the cached bundle rebuilt: {cache.stats()}")
+    if runs[1][2]["fused_spmm_ema_shared"] == 0 or runs[0][3] != runs[1][3]:
+        raise AssertionError("the cached bundle's second run differs")
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _service_fault(g, tmp: str, est_u12: float, total: dict,
+                   times: int) -> None:
+    """Step 5: ``times`` injected dispatch faults step a fresh u12 group's
+    ladder by one rung for every two: 2 to level 1 (unfused, the BSR SpMM
+    and eMA kernels), 4 to level 2 (also the gather SpMM kernel). Either
+    way it still gives the estimate, on hand-written kernels only."""
+    import gc
+
+    import torch
+
+    from repro_torch.obs import metrics
+    from repro_torch.resilience import faults
+    from repro_torch.resilience.retry import RetryPolicy
+    from repro_torch.service import CountingService, CountRequest
+
+    want_level, want_spmm = {2: (1, "spmm_bsr"), 4: (2, "spmm_gather")}[times]
+    _reset_counts()
+    svc = CountingService(
+        ledger_root=os.path.join(tmp, f"ledger_fault{times}"), round_size=8,
+        default_max_iters=8, memory_budget_bytes=SERVICE_BUDGET,
+        degrade_after=2, retry_policy=RetryPolicy(max_attempts=times + 2,
+                                                  base_delay_s=0.01))
+    svc.add_graph("g", g)
+    plan = faults.FaultPlan([faults.FaultSpec("kernel.dispatch",
+                                              mode="raise", times=times)],
+                            seed=0)
+    with faults.active_plan(plan):
+        rid = svc.submit(CountRequest("g", "u12", max_iters=8))
+        res = svc.run()[rid]
+    launches = _service_counts(total)
+    (grp,) = svc._groups.values()
+    ladders = svc.resilience_state()["degraded_ladders"]
+    level = metrics.gauge("degradation_level", engine="pgbsc",
+                          template=grp.key[1][:8]).value
+    print(f"[service] step 5 ({times} faults): kernel.dispatch raised "
+          f"{plan.stats()['kernel.dispatch:raise']['fired']} times; ladder "
+          f"{ladders}, degradation_level gauge {level}; engine "
+          f"fuse_spmm_ema={grp.engine.fuse_spmm_ema} spmm_method="
+          f"{grp.engine.spmm_method}; estimate {res.estimate!r} (batch "
+          f"{est_u12!r}); launches={launches}", flush=True)
+    if level != want_level or grp.engine.fuse_spmm_ema is not False:
+        raise AssertionError(f"the ladder did not step to level "
+                             f"{want_level}: {ladders}")
+    other = "spmm_gather" if want_spmm == "spmm_bsr" else "spmm_bsr"
+    if launches["fused_spmm_ema"] != 0 or launches[other] != 0 \
+            or launches["ema"] == 0 or launches[want_spmm] == 0:
+        raise AssertionError(f"the level-{want_level} engine did not run "
+                             f"{want_spmm} and ema alone: {launches}")
+    if not math.isclose(res.estimate, est_u12, rel_tol=PATH_RTOL):
+        raise AssertionError(f"degraded u12 {res.estimate} != {est_u12}")
+    del svc, grp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_service(g, res_u12, est_u13: float) -> dict:
+    """(S) the counting service on the card, through the port's modules
+    only: graph IO, batch serve, HTTP serve, chunking and a cached bundle,
+    injected failures to ladder levels 1 and 2, held to ``phase_full``'s
+    u12 result and ``phase_chunked_full``'s u13 estimate. Returns the
+    launches of all its steps."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    total: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        path, g_loaded = _service_load(g, tmp)
+        est_served, est_u10 = _service_batch(path, tmp, res_u12, total)
+        _service_u10_reference(g, est_u10)
+        _service_release(g)
+        _service_profile(g, tmp)
+        _service_http(g_loaded, tmp, est_served, est_u10, total)
+        _service_chunk_bundle(g, tmp, est_u13, total)
+        for times in (2, 4):
+            _service_fault(g, tmp, est_served, total, times)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[service] (S) took {time.perf_counter() - t0:.1f} s; launches "
+          f"{total}", flush=True)
+    if min(total[k] for k in ("spmm_bsr", "spmm_gather", "ema",
+                              "fused_spmm_ema", "fused_spmm_ema_shared",
+                              "ema_chunk_acc")) == 0:
+        raise AssertionError(f"a kernel of (S) never launched: {total}")
+    return total
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -1633,7 +2124,8 @@ def main() -> int:
     phase_parity_rowmajor()
     phase_parity_backends()
     _sync()
-    by_path = {"u12_grid": phase_full(g)}
+    by_path = {}
+    by_path["u12_grid"], res_u12 = phase_full(g)
     _sync()
     by_path["u12_runner"] = phase_runner(g)
     _sync()
@@ -1664,7 +2156,7 @@ def main() -> int:
     sweeps["u12_rmat20"] = phase_shape_sweep("path B", g_rmat, 12, batch_b,
                                              shapes_b)
     _sync()
-    by_path["u13_chunked_grid"] = phase_chunked_full(
+    by_path["u13_chunked_grid"], est_u13 = phase_chunked_full(
         g, chunk[(torch.float32, 1716)])
     _sync()
     mesh = phase_reorder_mesh(g)
@@ -1672,6 +2164,9 @@ def main() -> int:
         by_path[f"u12_scrambled_{label}"] = counts
     _sync()
     phase_profile(g, g_rmat)
+    _sync()
+    del g_rmat
+    by_path["service"] = phase_service(g, res_u12, est_u13)
     _sync()
     # each kernel's numbers at the f32 shapes of the path it was added
     # for; its launches are those of that path's full run

@@ -31,14 +31,14 @@ import time
 import numpy as np
 
 from repro_torch.core.colorsets import colorful_probability
-from repro_torch.core.engines import CountingEngine
+from repro_torch.core.engines import CountingEngine, build_engine
 from repro_torch.core.motif_features import motif_features
 from repro_torch.core.templates import TemplateSpec
 from repro_torch.service.requests import RequestResult, RunningStat
 
 __all__ = ["CountQuery", "CompiledQuery", "RequestResult", "TemplateSpec",
-           "compile_query", "count", "count_many", "motif_features",
-           "DEFAULT_MAX_ITERS"]
+           "compile_query", "count", "count_many", "template",
+           "motif_features", "DEFAULT_MAX_ITERS"]
 
 # hard iteration ceiling for queries that only set a rel_stderr target
 DEFAULT_MAX_ITERS = 64
@@ -97,17 +97,20 @@ class CompiledQuery:
     becomes a single fused-plan engine; :meth:`run` drives adaptive rounds
     per group and returns one :class:`RequestResult` per template, in query
     order. ``groups`` and ``engines`` expose the group engines (dispatch
-    counters, fusion report and memory model) for introspection.
+    counters, fusion report and memory model) for introspection. With an
+    ``engine_cache`` (:class:`~repro_torch.service.cache.EngineCache`) the
+    group engines come from it, keyed by canonical hashes and the device.
     """
 
-    def __init__(self, g, query: CountQuery, *, dtype=None, device=None):
+    def __init__(self, g, query: CountQuery, *, dtype=None, device=None,
+                 engine_cache=None):
         query.validate()
         self.g = g
         self.query = query
         by_k: dict[int, list[int]] = {}
         for i, spec in enumerate(query.templates):
             by_k.setdefault(spec.k, []).append(i)
-        kw = {"engine": query.engine, "plan": query.plan, "device": device}
+        kw = {"device": device}
         if query.memory_budget_bytes is not None:
             kw["memory_budget_bytes"] = int(query.memory_budget_bytes)
         if query.reorder:
@@ -116,9 +119,15 @@ class CompiledQuery:
             kw["dtype"] = dtype
         self.groups: list[tuple[list[int], CountingEngine]] = []
         for k in sorted(by_k):
-            trees = [query.templates[i].tree for i in by_k[k]]
-            eng = CountingEngine(g, trees if len(trees) > 1 else trees[0],
-                                 **kw)
+            specs = [query.templates[i] for i in by_k[k]]
+            if engine_cache is not None:
+                eng = engine_cache.get(
+                    g, specs if len(specs) > 1 else specs[0], query.engine,
+                    query.plan, **kw)
+            else:
+                trees = [s.tree for s in specs]
+                eng = build_engine(g, trees if len(trees) > 1 else trees[0],
+                                   query.engine, plan=query.plan, **kw)
             self.groups.append((by_k[k], eng))
 
     @property
@@ -177,10 +186,13 @@ class CompiledQuery:
         return out
 
 
-def compile_query(g, query: CountQuery, *, dtype=None,
-                  device=None) -> CompiledQuery:
-    """Lower a :class:`CountQuery` onto ``g``: one fused engine per k."""
-    return CompiledQuery(g, query, dtype=dtype, device=device)
+def compile_query(g, query: CountQuery, *, dtype=None, device=None,
+                  engine_cache=None) -> CompiledQuery:
+    """Lower a :class:`CountQuery` onto ``g``: one fused engine per k
+    (served from ``engine_cache`` when given: two spellings of the same
+    tree share one engine)."""
+    return CompiledQuery(g, query, dtype=dtype, device=device,
+                         engine_cache=engine_cache)
 
 
 def count_many(g, templates, *, rel_stderr: float | None = None,
@@ -217,3 +229,8 @@ def count(g, template, **kw) -> RequestResult:
     """Estimate the count of one template (see :func:`count_many` for the
     accepted template forms and keywords)."""
     return count_many(g, [template], **kw)[0]
+
+
+def template(obj) -> TemplateSpec:
+    """Coerce anything template-ish into a :class:`TemplateSpec`."""
+    return TemplateSpec.of(obj)

@@ -114,8 +114,9 @@ class CountingEngine:
     coloring, every template's root table is a kept output of the walk, and
     totals come back as ``(T,)`` per coloring (``(B, T)`` batched) with a
     T-tuple of root tables; :meth:`estimate_many` gives one estimate per
-    template. ``n_spmm_cols_dispatched`` counts the SpMM column-ops the
-    dispatched colorings cost, so the savings are observable.
+    template. ``n_colorings_dispatched`` counts the colorings walked and
+    ``n_spmm_cols_dispatched`` the SpMM column-ops they cost, so the
+    savings are observable.
 
     ``memory_budget_bytes`` becomes the coloring batch size through the
     executor's memory model (fused nodes are charged no neighbor-sum
@@ -236,8 +237,9 @@ class CountingEngine:
         self._materialize()
         self.work = self._estimate_work()
         self.spmm_cols_per_coloring = self._spmm_cols_per_coloring()
-        # SpMM column-ops the dispatched colorings cost (the fused-plan
-        # savings metric)
+        # colorings walked, and the SpMM column-ops they cost (the
+        # fused-plan savings metric)
+        self.n_colorings_dispatched = 0
         self.n_spmm_cols_dispatched = 0
 
     def _fused_candidates(self) -> tuple[tuple[int, ...],
@@ -417,7 +419,15 @@ class CountingEngine:
         return self.exec_choice.peak_bytes_per_coloring * self.batch_size
 
     def release(self) -> None:
-        """Drop the device operands; the next count call rebuilds them."""
+        """Drop the device operands; the next count call rebuilds them.
+
+        Their memory goes back to torch's caching allocator, where the next
+        tensor of the process reuses it, not to the card
+        (``torch.cuda.empty_cache()`` returns the allocator's free blocks).
+        Nothing a count call allocates outlives it: the operands and split
+        tables built here are only read, and every table, scratch and total
+        of a walk is the call's own.
+        """
         self._spmm_prep = self._fused_prep = None
         self._nbr = self._mask = None
         self._order_dev = self._inv_dev = None
@@ -582,6 +592,7 @@ class CountingEngine:
                 root = (tuple(r.index_select(vaxis, inv) for r in root)
                         if self.fused else root.index_select(vaxis, inv))
             _tracing.sync_ready(totals)
+        self.n_colorings_dispatched += b
         self.n_spmm_cols_dispatched += self.spmm_cols_per_coloring * b
         return totals, root
 

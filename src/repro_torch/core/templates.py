@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import re
 from functools import cached_property
 
@@ -252,9 +253,9 @@ class TemplateSpec:
     optional display name. It coerces from every template-ish thing the
     stack accepts (:meth:`of`: registry names, ``TreeTemplate`` objects,
     other specs, raw edge lists) and exposes the template's
-    :attr:`canonical_hash`, its identity up to relabeling. The JAX
-    package's spec also serializes itself for the service's caches; that
-    comes over with the service stack (ROADMAP.md).
+    :attr:`canonical_hash`, its identity up to relabeling, and serializes
+    to the JAX package's JSON form (:meth:`to_dict` / :meth:`from_dict`,
+    the CLI's ``"u-v,u-v,...[@root]"`` through :meth:`from_edge_string`).
     """
 
     edges: tuple[tuple[int, int], ...]
@@ -282,6 +283,25 @@ class TemplateSpec:
         spec.tree                           # validate eagerly: clear errors now
         return spec
 
+    @classmethod
+    def from_edge_string(cls, s: str, name: str | None = None
+                         ) -> "TemplateSpec":
+        """Parse the CLI form ``"0-1,1-2,1-3[@root]"``."""
+        s = s.strip()
+        root = 0
+        if "@" in s:
+            s, _, r = s.rpartition("@")
+            root = int(r)
+        edges = []
+        for part in s.split(","):
+            u, sep, v = part.strip().partition("-")
+            if not sep:
+                raise ValueError(f"bad edge {part!r}; expected 'u-v'")
+            edges.append((int(u), int(v)))
+        spec = cls(edges=tuple(edges), root=root, name=name)
+        spec.tree
+        return spec
+
     # ----------------------------------------------------------- derivation
     @cached_property
     def tree(self) -> TreeTemplate:
@@ -299,6 +319,27 @@ class TemplateSpec:
     @property
     def automorphisms(self) -> int:
         return self.tree.automorphisms
+
+    @property
+    def display_name(self) -> str:
+        return self.name or f"tpl:{self.canonical_hash[:8]}"
+
+    # -------------------------------------------------------- serialization
+    def to_dict(self) -> dict:
+        d = {"edges": [list(e) for e in self.edges], "root": self.root}
+        if self.name is not None:
+            d["name"] = self.name
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TemplateSpec":
+        spec = cls(edges=tuple(tuple(e) for e in d["edges"]),
+                   root=d.get("root", 0), name=d.get("name"))
+        spec.tree
+        return spec
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
 
 
 def as_template(obj) -> TreeTemplate:

@@ -167,6 +167,10 @@ class Graph:
     def max_degree(self) -> int:
         return int(self.degrees.max()) if self.n else 0
 
+    @property
+    def avg_degree(self) -> float:
+        return float(self.m) / max(1, self.n)
+
     @cached_property
     def fingerprint(self) -> str:
         """Stable content hash of the CSR structure (32 hex chars), equal

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 __all__ = ["library", "kernel", "check", "BUILD_ROOT", "CSRC"]
@@ -32,6 +33,9 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _LIB_NAME = "libreprotorch.so"
 _lib: list[ctypes.CDLL] = []
 _fns: dict[str, ctypes._CFuncPtr] = {}
+# the first load may come from two threads at once (the service's
+# dispatcher and a warm-pool build): one builds, the other waits
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -93,15 +97,18 @@ def _build(out: Path) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this checkout has none."""
+    """The loaded kernel library, built first if this checkout has none.
+    Thread-safe: concurrent first calls build and load it once."""
     if not _lib:
-        out = _build_dir()
-        if not (out / _LIB_NAME).exists():
-            _build(out)
-        lib = ctypes.CDLL(str(out / _LIB_NAME))
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-        _lib.append(lib)
+        with _load_lock:
+            if not _lib:
+                out = _build_dir()
+                if not (out / _LIB_NAME).exists():
+                    _build(out)
+                lib = ctypes.CDLL(str(out / _LIB_NAME))
+                lib.rt_error_string.argtypes = [ctypes.c_int]
+                lib.rt_error_string.restype = ctypes.c_char_p
+                _lib.append(lib)
     return _lib[0]
 
 
@@ -112,7 +119,9 @@ def kernel(name: str, argtypes: list) -> ctypes._CFuncPtr:
     times a coloring."""
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(library(), name)
+        # indexing makes a new function object (attribute access would
+        # share one): declared in full before another thread reads it
+        fn = library()[name]
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn

@@ -119,7 +119,56 @@ def test_new_modules_are_scanned():
             "src/repro_torch/core/oracle.py",
             "src/repro_torch/resilience/__init__.py",
             "src/repro_torch/resilience/faults.py",
-            "src/repro_torch/resilience/recovery.py"} <= names
+            "src/repro_torch/resilience/recovery.py",
+            "src/repro_torch/resilience/retry.py",
+            "src/repro_torch/resilience/degradation.py",
+            "src/repro_torch/service/__init__.py",
+            "src/repro_torch/service/cache.py",
+            "src/repro_torch/service/qos.py",
+            "src/repro_torch/service/scheduler.py",
+            "src/repro_torch/service/async_loop.py",
+            "src/repro_torch/service/frontend.py",
+            "src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/graph/io.py",
+            "src/repro_torch/obs/validate.py"} <= names
+
+
+def test_importing_the_service_and_launcher_loads_no_jax():
+    code = ("import sys, repro_torch.service, repro_torch.service.frontend, "
+            "repro_torch.launch.serve, repro_torch.graph.io, "
+            "repro_torch.obs.validate, repro_torch.resilience; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin"})
+    assert out.stdout.strip() == "False"
+
+
+@pytest.mark.parametrize("make", ["CountingService", "AsyncCountingService",
+                                  "serve.main"])
+def test_service_defaults_to_cuda_and_raises_without_a_card(make,
+                                                            monkeypatch,
+                                                            tmp_path):
+    from repro_torch.launch import serve
+    from repro_torch.service import AsyncCountingService, CountingService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    led = str(tmp_path / "led")
+    build = {
+        "CountingService": lambda **kw: CountingService(ledger_root=led,
+                                                        **kw),
+        "AsyncCountingService": lambda **kw: AsyncCountingService(
+            ledger_root=led, **kw),
+        "serve.main": lambda **kw: serve.main(
+            ["--graph", "er:40", "--templates", "u3", "--iters", "2",
+             "--ledger", led]
+            + (["--device", kw["device"]] if kw else [])),
+    }[make]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    build(device="cpu")
 
 
 def test_unknown_spmm_operand_raises():
@@ -161,3 +210,41 @@ def test_fused_fit_model_admits_passive_tables_up_to_1560(dtype):
     from repro_torch.kernels.fused.ops import SMEM_LIMIT, fused_smem_bytes
     assert fused_smem_bytes(1560, dtype) == SMEM_LIMIT == 232_448
     assert fused_fits_smem(1560, dtype) and not fused_fits_smem(1561, dtype)
+
+
+def test_kernel_library_loads_once_when_threads_race(monkeypatch):
+    """The service's dispatcher and a warm-pool build may both reach the
+    first kernel launch: one builds and loads the library, the other
+    waits for it."""
+    import threading
+    import time
+    import types
+
+    from repro_torch.kernels import _build
+
+    builds, loads = [], []
+
+    class FakeLib:
+        def __init__(self, path):
+            loads.append(path)
+            self.rt_error_string = types.SimpleNamespace()
+
+    def slow_build(out):
+        builds.append(out)
+        time.sleep(0.2)                    # the other thread arrives here
+
+    fake_ctypes = types.SimpleNamespace(CDLL=FakeLib, c_int=int,
+                                        c_char_p=bytes)
+    monkeypatch.setattr(_build, "_lib", [])
+    monkeypatch.setattr(_build, "_build", slow_build)
+    monkeypatch.setattr(_build, "ctypes", fake_ctypes)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_build.library()))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30.0)
+        assert not t.is_alive()
+    assert len(builds) == 1 and len(loads) == 1
+    assert len(got) == 4 and all(lib is got[0] for lib in got)
