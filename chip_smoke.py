@@ -2,9 +2,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives ten paths of the
-port, each with every kernel's launch counter set to 0 just before it and
-read just after:
+``src/repro_torch/csrc``) and nothing of JAX. It drives twelve paths of
+the port, each with every kernel's launch counter set to 0 just before it
+and read just after:
 
 * **u12 on a mesh:** ``api.count(grid_2d(1024, 1024), "u12", max_iters=8,
   memory_budget_bytes=32 GiB)`` — BSR SpMM, eMA, fused SpMM->eMA;
@@ -24,8 +24,17 @@ read just after:
 * **the scrambled mesh:** ``grid_2d(1024, 1024)`` relabelled at random, u12
   over 8 colorings (a) through the gather SpMM as it is, (b) the same with
   ``reorder="rcm"``, (c) ``api.count(..., reorder="rcm")`` on the default
-  BSR and fused path, which cannot build its blocks unreordered;
+  BSR and fused path;
 * **path B relabelled:** path B's engine with ``reorder="degree"``;
+* **u12 on the social graph on the defaults:** ``compile_query`` of u12
+  on ``rmat(20)`` with the port's default BSR operand and fusion (its
+  nonzero index alone on the card), 48 GiB, one full batch of path B's
+  size (7 colorings), held against path B's estimate on the same
+  colorings;
+* **the autotuner:** u12 on the mesh, the k=10 census and u13 chunked at
+  16 GiB again with ``engine_kw={"autotune_blocks": True}``, each after a
+  warm run whose sweeps are timed apart, estimates bit-equal to the
+  untuned runs';
 * **(R) the runner:** ``EstimatorRunner(engine_counter(eng, seed=0),
   n_iterations=8, checkpoint_every=3)`` over u12 on the mesh (optimized
   plan, 32 GiB, batch 4), a ledger in a temporary directory: a straight
@@ -57,7 +66,12 @@ read just after:
 In order it prints:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the kernels' build time and ptxas' register counts;
+2. the kernels' build time and ptxas' register counts, then the card's
+   measured peaks (``[peaks]``): the larger of a 4 GiB device-to-device
+   copy's and a 4 GiB read's rate, and an f32 matmul with TF32 off,
+   against which every kernel row's ``bound_ms_measured`` and
+   ``roof_fraction`` (``KernelRoofline``, at most 1 or the run fails) are
+   read beside the data-sheet ``bound_ms``;
 3. each CUDA kernel against its plain PyTorch version on the card, at its
    path's shapes, f32 and bf16 storage: error against the stated
    tolerance, kernel and plain times, the kernel's bound, and for the two
@@ -69,7 +83,11 @@ In order it prints:
    group shape each launches is timed at its batch beside its bound
    (``[sweep]``), and the costliest of each kernel is held against its
    plain version. The chunk-accumulate kernel is held against its plain
-   version at u13 node 5's chunking (f32, bf16) and at 4-row chunks;
+   version at u13 node 5's chunking (f32, bf16) and at 4-row chunks.
+   The three tuned kernels (BSR SpMM, gather SpMM, eMA) run every launch
+   shape at each shape their paths launch them with (``[tune]``), each
+   held against the plain version exactly, and the autotuner's pick is
+   printed beside the default;
 4. whole-path parity, the card's engine against the CPU engine (plain
    versions): u12 on ``grid_2d(64, 64)``; the k=8 census (23 trees) on
    ``grid_2d(64, 64)`` through ``count_many`` and ``motif_features``; all
@@ -85,7 +103,9 @@ In order it prints:
    occupied blocks and host seconds; (R)'s ``[runner]`` lines and (F)'s
    ``[regime]`` lines: each regime's batch, seconds per coloring, peak
    beside ``exec_choice.peak_bytes`` and ``engine.work.total_flops``, and
-   the ratios FASCIA/PGBSC and PFASCIA/PGBSC;
+   the ratios FASCIA/PGBSC and PFASCIA/PGBSC; ``[autotune]`` lines: the
+   tuned runs' seconds per coloring beside the untuned, their sweeps'
+   seconds, the winners by shape and the ``autotune_cache_*`` counters;
 6. where the time goes: one batch of each full-size path (FASCIA's and
    PFASCIA's among them) under
    ``torch.profiler``, device time and launches by kernel, the device's
@@ -115,6 +135,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+# the card's own rates, measured by phase_peaks: "copy_bw" bytes/s of a
+# device-to-device copy (read + write), "read_bw" of the fastest read,
+# "bw" the larger of the two, "f32_flops" FLOP/s of an f32 matmul
+PEAKS: dict = {}
+# phase_full's peak while the BSR operand still held its dense blocks on
+# the card (an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §4)
+DENSE_BLOCKS_U12_PEAK = 31_835_362_816
 F32_RTOL = 1e-6                # integer inputs: both sides are exact in f32
 BF16_RTOL = 1e-2               # bf16 storage rounds the stored results
 PATH_RTOL = 1e-5               # f32 sums past 2^24 taken in another order
@@ -222,6 +249,124 @@ def _device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _step_cost(b: int, n: int, c_a: int, c_p: int, s: int, l: int,
+               itemsize: int, *, e: int = 0, index_bytes: int = 0) -> dict:
+    """``bytes`` and ``flops`` of one eMA or fused step at batch ``b``, by
+    the port's roofline model (``spmm_ema_hbm_bytes``, ``spmm_ema_flops``):
+    the tables read and written once, plus ``index_bytes`` of split tables
+    and adjacency index. A fused step has the SpMM's ``e`` edges; an eMA
+    alone is the step without its SpMM (``e`` 0), reading its ``y_p`` as a
+    fused step reads ``m_p``. A shared-passive group is one step of
+    ``c_p`` with ``c_a = s = 0`` plus each consumer's with ``c_p = 0``."""
+    from repro_torch.analysis.roofline import (spmm_ema_flops,
+                                               spmm_ema_hbm_bytes)
+    return dict(bytes=spmm_ema_hbm_bytes(b, n, c_a, c_p, s, index_bytes,
+                                         itemsize, fused=True),
+                flops=spmm_ema_flops(b, e, n, c_p, s, l))
+
+
+def _group_cost(b: int, n: int, c_p: int, consumers, itemsize: int, e: int,
+                adj_bytes: int, split_bytes) -> dict:
+    """``bytes`` and ``flops`` of one shared-passive group launch: its
+    passive leg's SpMM over ``e`` edges once, then each consumer's
+    ``(c_a, s, l)`` eMA (:func:`_step_cost`)."""
+    costs = [_step_cost(b, n, 0, c_p, 0, 0, itemsize, e=e,
+                        index_bytes=adj_bytes)]
+    costs += [_step_cost(b, n, c_a, 0, s, l, itemsize, index_bytes=sb)
+              for (c_a, s, l), sb in zip(consumers, split_bytes)]
+    return dict(bytes=sum(c["bytes"] for c in costs),
+                flops=sum(c["flops"] for c in costs))
+
+
+def _measured_bound(name: str, nbytes: float, flops: float,
+                    ms: float) -> dict:
+    """The least time at the card's measured peaks (``PEAKS``) and the
+    kernel's roofline fraction at them, both from ``KernelRoofline``. A
+    fraction over 1 means the byte or flop count, or the peak, is wrong:
+    it raises."""
+    from repro_torch.analysis.roofline import KernelRoofline
+    roof = KernelRoofline(name, flops, nbytes, ms / 1e3, PEAKS["f32_flops"],
+                          PEAKS["bw"])
+    if roof.roof_fraction > 1.0:
+        raise AssertionError(
+            f"{name}: {ms} ms beats its bound at the measured peaks, "
+            f"{roof.bound_seconds * 1e3} ms ({nbytes} B, {flops} FLOP; "
+            f"roof_fraction {roof.roof_fraction})")
+    return dict(bound_ms_measured=roof.bound_seconds * 1e3,
+                roof_fraction=roof.roof_fraction)
+
+
+def phase_peaks() -> None:
+    """The card's peaks, measured: its memory rate, the larger of a 4 GiB
+    device-to-device ``copy_`` (read and write counted) and the fastest of
+    seven reads of the same 4 GiB (``sum``, row sums, ``amax``, the ``dot``
+    of its halves, and f32 ``mv`` at three widths; each reads it once and
+    writes next to nothing), each the median of 12; and the f32 FMA rate
+    (an 8192^3 f32 matmul with TF32 off, median of 10). These time
+    yardsticks, not kernels of the port; a kernel row whose time beats its
+    bound at these rates fails (``_measured_bound``)."""
+    import statistics
+
+    import torch
+
+    def median_ms(fn, reps):
+        fn()
+        _sync()
+        ts = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        return statistics.median(ts)
+
+    n = 1 << 30
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    src = torch.empty(n, dtype=torch.float32, device="cuda").random_(
+        0, 4, generator=gen)
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src), 12)
+    del dst
+    torch.cuda.empty_cache()
+    ones = torch.ones(1 << 16, device="cuda")
+    reads = {
+        "sum": lambda: src.sum(),
+        "row sums": lambda: src.view(1 << 14, 1 << 16).sum(dim=1),
+        "amax": lambda: src.amax(),
+        "dot": lambda: torch.dot(src[:n // 2], src[n // 2:]),
+    }
+    for w in (256, 4096, 1 << 16):
+        reads[f"mv {w} wide"] = (
+            lambda w=w: torch.mv(src.view(n // w, w), ones[:w]))
+    read_ms = {name: median_ms(fn, 12) for name, fn in reads.items()}
+    del src, ones
+    torch.cuda.empty_cache()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    k = 8192
+    a = torch.randn((k, k), generator=gen, device="cuda")
+    b = torch.randn((k, k), generator=gen, device="cuda")
+    mm_ms = median_ms(lambda: a @ b, 10)
+    del a, b
+    torch.cuda.empty_cache()
+    PEAKS["copy_bw"] = 2 * n * 4 / (copy_ms / 1e3)
+    PEAKS["read_bw"] = n * 4 / (min(read_ms.values()) / 1e3)
+    PEAKS["bw"] = max(PEAKS["copy_bw"], PEAKS["read_bw"])
+    PEAKS["f32_flops"] = 2 * k ** 3 / (mm_ms / 1e3)
+    reads_txt = ", ".join(f"{name} {ms:.4f} ms ({n * 4 / ms / 1e9:.4f} TB/s)"
+                          for name, ms in read_ms.items())
+    print(f"[peaks] {_device_line()}: device-to-device copy of {4 * n} B "
+          f"{copy_ms:.4f} ms -> {PEAKS['copy_bw'] / 1e12:.4f} TB/s (read + "
+          f"write); reads of {4 * n} B: {reads_txt} -> "
+          f"{PEAKS['read_bw'] / 1e12:.4f} TB/s; memory rate taken "
+          f"{PEAKS['bw'] / 1e12:.4f} TB/s (data sheet "
+          f"{HBM_BYTES_PER_S / 1e12:.2f}); f32 matmul {k}^3 TF32 off "
+          f"{mm_ms:.3f} ms -> {PEAKS['f32_flops'] / 1e12:.3f} TFLOP/s "
+          f"(data sheet {F32_FLOPS_PER_S / 1e12:.0f})", flush=True)
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -263,10 +408,10 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
         prep = spmm_ops.prepare(g, dtype=dt, device=dev)
         item = dt.itemsize
         print(f"[kernel] BSR operand ({dt}): n={n} m={g.m} "
-              f"blocks={prep.n_blocks} tiles={prep.n_tiles} "
-              f"bytes={prep.blocks.numel() * item} nonzero index bytes="
-              f"{prep.index_bytes} nnz_per_block={g.m / prep.n_blocks:.1f}",
-              flush=True)
+              f"blocks={prep.n_blocks} tiles={prep.n_tiles} device bytes="
+              f"{prep.nbytes} (nonzero index {prep.index_bytes}; no dense "
+              f"blocks, which would take {prep.n_blocks * 128 * 128 * item}) "
+              f"nnz_per_block={g.m / prep.n_blocks:.1f}", flush=True)
         # the least adjacency bytes the product needs: its nonzeros as
         # int32 CSR, not the dense block stream the kernels are given
         adj_bytes = 4 * (n + 1 + g.m)
@@ -297,9 +442,9 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
                                   f"S=792 L=7",
                 kernel=lambda: ema_ops.ema(m_a6, y_p6, ia6, ip6),
                 plain=lambda: ema_ops.ema_plain(m_a6, y_p6, ia6, ip6),
-                bytes=(m_a6.numel() + y_p6.numel() + b * 792 * n) * item
-                + 8 * ia6.numel(),
-                flops=2 * b * 792 * 7 * n, library=None))
+                **_step_cost(b, n, 924, 12, 792, 7, item,
+                             index_bytes=8 * ia6.numel()),
+                library=None))
             for case in cases:
                 results[(case["name"], dt, b)] = _measure(case, tol,
                                                           n_iters_fast)
@@ -315,9 +460,9 @@ def phase_kernels(g, n_iters_fast: int = 10) -> dict:
                                                         prep),
                 plain=lambda: fused_ops.fused_spmm_ema_plain(
                     m_a5, m_p5, ia5, ip5, prep),
-                bytes=(m_a5.numel() + m_p5.numel() + b * 924 * n) * item
-                + adj_bytes + 8 * ia5.numel(),
-                flops=2 * g.m * 792 * b + 2 * b * 924 * 6 * n, library=None)
+                **_step_cost(b, n, 12, 792, 924, 6, item, e=g.m,
+                             index_bytes=adj_bytes + 8 * ia5.numel()),
+                library=None)
             results[(case["name"], dt, b)] = _measure(case, tol, 3)
             del case, m_a5, m_p5
             torch.cuda.empty_cache()
@@ -356,7 +501,10 @@ def _measure(case: dict, tol: float, reps: int) -> dict:
                plain_ms=plain_ms, library_ms=lib_ms,
                library_transposed_ms=lib_t_ms,
                bound_ms=max(bound_bytes, bound_ops),
-               bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+               bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+               bytes=case["bytes"], flops=case["flops"],
+               **_measured_bound(case["name"], case["bytes"], case["flops"],
+                                 ms))
     lib = f"{lib_ms:.3f}" if lib_ms is not None else "n/a"
     lib_t = f" library_transposed_ms={lib_t_ms:.3f}" \
         if lib_t_ms is not None else ""
@@ -364,7 +512,9 @@ def _measure(case: dict, tol: float, reps: int) -> dict:
           f"max_rel_err={rel_err:.3e} (tol {tol:g}) "
           f"max_abs_err={abs_err:.3e} kernel_ms={ms:.3f} "
           f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.3f} "
-          f"({row['bound_by']}) library_ms={lib}{lib_t}", flush=True)
+          f"({row['bound_by']}) bound_ms_measured="
+          f"{row['bound_ms_measured']:.3f} roof_fraction="
+          f"{row['roof_fraction']:.3f} library_ms={lib}{lib_t}", flush=True)
     if not rel_err <= tol:
         raise AssertionError(f"{case['name']} disagrees with its plain "
                              f"version: {rel_err} > {tol}")
@@ -429,10 +579,8 @@ def phase_group_kernel(g, batch: int, n_cons: int) -> dict:
                 m_as, m_p, ias, ips, prep),
             plain=lambda: fused_ops.fused_spmm_ema_shared_plain(
                 m_as, m_p, ias, ips, prep),
-            bytes=(m_p.numel() + sum(m.numel() for m in m_as)
-                   + n_cons * batch * s * n) * dt.itemsize
-            + 4 * (n + 1 + g.m) + n_cons * 8 * ia.numel(),
-            flops=2 * g.m * c * batch + n_cons * 2 * batch * s * l * n,
+            **_group_cost(batch, n, c, [(c, s, l)] * n_cons, dt.itemsize,
+                          g.m, 4 * (n + 1 + g.m), [8 * ia.numel()] * n_cons),
             library=None)
         results[dt] = _measure(case, tol, 3)
         del case, m_p, m_as, prep
@@ -584,13 +732,6 @@ def phase_chunk_kernel(g) -> dict:
     return results
 
 
-def _bsr_bytes(prep) -> int:
-    """Device bytes of a BSR operand: the dense blocks and every index."""
-    return sum(t.numel() * t.element_size()
-               for t in (prep.blocks, prep.src_tile, prep.dst_tile,
-                         prep.tile_ptr, prep.col_ptr, prep.nz_src))
-
-
 def phase_chunked_full(g, chunk_row: dict) -> tuple[dict, float]:
     """u13 on grid_2d(1024, 1024) at a 16 GiB budget through the user's
     entry point, 4 colorings: node 5 runs chunked (1,716 single-row
@@ -615,7 +756,7 @@ def phase_chunked_full(g, chunk_row: dict) -> tuple[dict, float]:
     eng, res, built, launches, peak = run(16 * GIB)
     chunks = eng.schedule.chunk_map
     model = eng.peak_table_bytes
-    operand = _bsr_bytes(eng._spmm_prep)
+    operand = eng._spmm_prep.nbytes
     secs = res.seconds / res.iterations
     adj = 4 * (g.n + 1 + g.m)
     spmm_bound = chunks.get(5, 0) * (adj + 2 * g.n * 4) / HBM_BYTES_PER_S
@@ -1151,11 +1292,8 @@ def phase_shape_sweep(label: str, g, k: int, batch: int,
                  f"{label}")
         return dict(
             name="fused_spmm_ema_shared", shape=shape,
-            bytes=batch * (c_p + sum(a + s_ for a, s_, _ in dims)) * n
-            * dt.itemsize + sum(8 * ia.numel() for ia in ias)
-            + 4 * (n + 1 + g.m),
-            flops=2 * g.m * c_p * batch
-            + sum(2 * batch * s_ * l_ * n for _, s_, l_ in dims),
+            **_group_cost(batch, n, c_p, dims, dt.itemsize, g.m,
+                          4 * (n + 1 + g.m), [8 * ia.numel() for ia in ias]),
             kernel=lambda: fused_ops.fused_spmm_ema_shared(
                 m_as, m_p, ias, ips, prep),
             plain=lambda: fused_ops.fused_spmm_ema_shared_plain(
@@ -1173,17 +1311,17 @@ def phase_shape_sweep(label: str, g, k: int, batch: int,
         m_a, m_p = rand(c_a), rand(c_p)
         shape = (f"m_a=({batch},{c_a},{n}) m_p=({batch},{c_p},{n}) "
                  f"S={s_} L={l_} {label}")
-        data = (batch * (c_a + c_p + s_) * n * dt.itemsize
-                + 8 * ia.numel())
-        flops = 2 * batch * s_ * l_ * n
         if name == "ema":
-            return dict(name=name, shape=shape, bytes=data, flops=flops,
+            return dict(name=name, shape=shape,
+                        **_step_cost(batch, n, c_a, c_p, s_, l_, dt.itemsize,
+                                     index_bytes=8 * ia.numel()),
                         kernel=lambda: ema_ops.ema(m_a, m_p, ia, ip),
                         plain=lambda: ema_ops.ema_plain(m_a, m_p, ia, ip),
                         library=None)
         return dict(name=name, shape=shape,
-                    bytes=data + 4 * (n + 1 + g.m),
-                    flops=flops + 2 * g.m * c_p * batch,
+                    **_step_cost(batch, n, c_a, c_p, s_, l_, dt.itemsize,
+                                 e=g.m, index_bytes=8 * ia.numel()
+                                 + 4 * (n + 1 + g.m)),
                     kernel=lambda: fused_ops.fused_spmm_ema(m_a, m_p, ia, ip,
                                                             prep),
                     plain=lambda: fused_ops.fused_spmm_ema_plain(
@@ -1375,7 +1513,9 @@ def phase_full(g) -> tuple[dict, object]:
           f"s_per_coloring={res.seconds / res.iterations:.4f} "
           f"(count loop {res.seconds:.3f} s, with engine build "
           f"{wall:.3f} s) launches={launches} "
-          f"max_memory_allocated={peak} ({peak / GIB:.2f} GiB)", flush=True)
+          f"max_memory_allocated={peak} ({peak / GIB:.2f} GiB; with the "
+          f"dense blocks on the card: {DENSE_BLOCKS_U12_PEAK} B, "
+          f"{peak - DENSE_BLOCKS_U12_PEAK:+d} B)", flush=True)
     if not (math.isfinite(res.estimate) and res.estimate > 0
             and res.iterations == 8):
         raise AssertionError(f"bad estimate {res}")
@@ -1386,13 +1526,13 @@ def phase_full(g) -> tuple[dict, object]:
     return launches, res
 
 
-def phase_census_full(g) -> tuple[dict, int, int, int, dict]:
+def phase_census_full(g) -> tuple[dict, int, int, int, dict, list]:
     """Path A: the k=10 census (106 trees) on grid_2d(1024, 1024), plan
     "dedup", 8 colorings, through ``compile_query(...).run()`` — the body
     of ``api.count_many`` — so the engine's groups and batch can be read.
     Returns (launches, batch size, largest group, colour sets of the
     largest passive table the SpMM kernel takes, eMA and fused launches a
-    batch by shape)."""
+    batch by shape, the 106 estimates)."""
     import torch
 
     from repro_torch import api
@@ -1441,7 +1581,7 @@ def phase_census_full(g) -> tuple[dict, int, int, int, dict]:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     return (launches, eng.batch_size, max(len(gr) for gr in groups),
-            max(unfused), kernel_shapes(eng))
+            max(unfused), kernel_shapes(eng), est)
 
 
 def unfused_spmm_rows(eng) -> dict:
@@ -1478,10 +1618,10 @@ def layout_sizes(g, tile: int = 128, chunk: int = 512) -> dict:
             "padded_chunk_bytes": chunks * chunk * 12}
 
 
-def phase_gather_full(g) -> tuple[dict, int, dict, float]:
+def phase_gather_full(g) -> tuple[dict, int, dict, dict]:
     """Path B: u12 on rmat(20) through the gather SpMM, 8 colorings.
-    Returns (launches, batch size, eMA launches a batch by shape,
-    estimate)."""
+    Returns (launches, batch size, eMA launches a batch by shape, the
+    estimate with its samples and seconds per coloring)."""
     import torch
 
     from repro_torch.core.engines import CountingEngine
@@ -1519,7 +1659,8 @@ def phase_gather_full(g) -> tuple[dict, int, dict, float]:
     if launches["spmm_bsr"] or launches["fused_spmm_ema"] \
             or not launches["spmm_gather"] or not launches["ema"]:
         raise AssertionError(f"path B's launches are off: {launches}")
-    return launches, eng.batch_size, kernel_shapes(eng), est["count"]
+    return (launches, eng.batch_size, kernel_shapes(eng),
+            dict(est, s_per_coloring=secs / 8))
 
 
 def _profile(label: str, fn) -> None:
@@ -2090,6 +2231,336 @@ def phase_service(g, res_u12, est_u13: float) -> dict:
     return total
 
 
+def _device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches after one warm
+    call, by CUDA events, with the card held busy (``torch.cuda._sleep``)
+    while the host queues the launches, so a launch shorter than its host
+    overhead is timed on the card alone."""
+    import torch
+    fn()
+    _sync()
+    torch.cuda._sleep(20_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _tune_case(name: str, label: str, candidates, default, run_at, plain,
+               nbytes: int, flops: int, tuned) -> dict:
+    """Every launch shape of one kernel at one of its path's shapes: each
+    candidate held against the plain version exactly (the launch shape
+    changes no sum's order), timed, and printed with its bound; then the
+    autotuner's own pick (``tuned()`` runs the wrapper with
+    ``autotune=True``; its choice is read from the autotuner's cache)
+    beside the default."""
+    import torch
+    want = plain()
+    _sync()
+    times, fractions = {}, {}
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    for c in candidates:
+        got = run_at(c)
+        _sync()
+        abs_err, _ = _errors(got, want)
+        del got
+        times[c] = _device_ms(lambda: run_at(c), 5)
+        roof = _measured_bound(name, nbytes, flops, times[c])
+        measured = roof["bound_ms_measured"]
+        fractions[str(c)] = roof["roof_fraction"]
+        print(f"[tune] {name:<11} {label:<50} shape={str(c):<9} "
+              f"kernel_ms={times[c]:.4f} bound_ms={bound:.4f} "
+              f"bound_ms_measured={measured:.4f} roof_fraction="
+              f"{roof['roof_fraction']:.3f} max_abs_err={abs_err:.1e}"
+              f"{' (default)' if c == default else ''}", flush=True)
+        if abs_err != 0.0:
+            raise AssertionError(f"{name} at launch shape {c} differs from "
+                                 f"its plain version by {abs_err}")
+    del want
+    torch.cuda.empty_cache()
+    from repro_torch.kernels import autotune
+    before = set(autotune.cache_info())
+    tuned()
+    _sync()
+    torch.cuda.empty_cache()
+    picked = [v for k, v in autotune.cache_info().items() if k not in before]
+    if len(picked) != 1 or picked[0] not in times:
+        raise AssertionError(f"{name} {label}: the autotuner cached {picked}")
+    winner = picked[0]
+    gain = times[default] - times[winner]
+    print(f"[tune] {name} {label}: the autotuner picks {winner} "
+          f"({times[winner]:.4f} ms) against the default {default} "
+          f"({times[default]:.4f} ms): {gain:+.4f} ms a launch, "
+          f"x{times[default] / times[winner]:.3f}", flush=True)
+    return dict(name=name, shape=label, default=str(default),
+                winner=str(winner), ms={str(c): t for c, t in times.items()},
+                bound_ms=bound, bound_ms_measured=measured,
+                roof_fraction=fractions)
+
+
+def phase_autotune_kernels(g, g_rmat, batch_a: int, batch_b: int) -> list:
+    """The three tuned kernels at the shapes their paths launch them
+    with, f32: the BSR SpMM at u12's leaf (batch 4) and at the chunked
+    walk's one-row chunk on the mesh; the eMA at u12's node 6 (batch 4),
+    the census's costliest shapes (210,120) S=120 L=35 and (120,120)
+    S=210 L=20 (path A's batch) and path B's node 6 (path B's batch); the
+    gather SpMM at path B's leaf on rmat(20). Returns one row a shape."""
+    import torch
+
+    from repro_torch.core.colorsets import split_tables
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ema import ops as ema_ops
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    dev, dt = torch.device("cuda"), torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    autotune.clear_cache()
+    rows = []
+
+    def rand(shape):
+        return torch.empty(shape, dtype=dt, device=dev).random_(
+            0, 4, generator=gen)
+
+    def spmm_case(graph, label, m, prep):
+        r = m.numel() // graph.n
+        if isinstance(prep, spmm_ops.BsrPrep):
+            name, cands, default = ("spmm_bsr", spmm_ops.bsr_shapes(
+                r, autotune.SPMM_C_BLOCK_CANDIDATES),
+                spmm_ops.BSR_ROWS_DEFAULT)
+            plain, flops = spmm_ops.spmm_plain, 2 * graph.m * r
+        else:
+            name, cands, default = ("spmm_gather", spmm_ops.gather_shapes(
+                prep, autotune.GATHER_BLOCK_CANDIDATES),
+                spmm_ops.GATHER_DESTS_DEFAULT)
+            plain, flops = spmm_ops.spmm_gather_plain, graph.m * r
+        rows.append(_tune_case(
+            name, label, cands, default,
+            lambda c: spmm_ops.spmm(m, prep, c_block=c),
+            lambda: plain(m, prep),
+            2 * m.numel() * dt.itemsize + 4 * (graph.n + 1 + graph.m), flops,
+            lambda: spmm_ops.spmm(m, prep, autotune=True)))
+
+    prep = spmm_ops.prepare(g, dtype=dt, device=dev)
+    spmm_case(g, "u12 leaf m=(4,12,n) mesh", rand((4, 12, g.n)), prep)
+    spmm_case(g, "u13 chunk m=(1,1,n) mesh", rand((1, 1, g.n)), prep)
+    del prep
+    for label, b, k, t, t_a in (("u12 node 6", 4, 12, 7, 6),
+                                ("census (210,120)", batch_a, 10, 7, 4),
+                                ("census (120,120)", batch_a, 10, 6, 3),
+                                ("path B node 6", batch_b, 12, 7, 6)):
+        ia, ip = (torch.as_tensor(a, dtype=torch.int32, device=dev)
+                  for a in split_tables(k, t, t_a))
+        s_, l_ = ia.shape
+        m_a = rand((b, math.comb(k, t_a), g.n))
+        y_p = rand((b, math.comb(k, t - t_a), g.n))
+        shape = (f"{label} m_a={tuple(m_a.shape)} y_p={tuple(y_p.shape)} "
+                 f"S={s_} L={l_}")
+        cands = ema_ops.ema_shapes(m_a, y_p, ia)
+        rows.append(_tune_case(
+            "ema", shape, cands, cands[0],
+            lambda c: ema_ops.ema(m_a, y_p, ia, ip, s_block=c[0],
+                                  n_block=c[1]),
+            lambda: ema_ops.ema_plain(m_a, y_p, ia, ip),
+            *_step_cost(b, g.n, m_a.shape[1], y_p.shape[1], s_, l_,
+                        dt.itemsize, index_bytes=8 * ia.numel()).values(),
+            lambda: ema_ops.ema(m_a, y_p, ia, ip, autotune=True)))
+        del m_a, y_p
+        torch.cuda.empty_cache()
+    prep = spmm_ops.prepare(g_rmat, "gather", device=dev)
+    spmm_case(g_rmat, f"path B leaf m=({batch_b},12,n) rmat(20)",
+              rand((batch_b, 12, g_rmat.n)), prep)
+    del prep
+    torch.cuda.empty_cache()
+    print(f"[tune] sweep launches (apart from the paths' counts): spmm "
+          f"{spmm_ops.spmm.sweep_launches}, ema "
+          f"{ema_ops.ema.sweep_launches}, spmm_gather "
+          f"{spmm_ops.spmm_gather.sweep_launches}", flush=True)
+    return rows
+
+
+def _autotune_counters() -> dict:
+    from repro_torch.obs import metrics
+    return {k: v for k, v in metrics.get_registry().snapshot()[
+        "counters"].items() if k.startswith("autotune_cache_")}
+
+
+def phase_autotune_full(g, est_u12: float, est_census: list,
+                        est_u13: float) -> dict:
+    """u12 on the mesh, the k=10 census and u13 chunked at 16 GiB with
+    ``autotune_blocks=True`` (``engine_kw``): each after a warm run of one
+    batch that sweeps every shape (its ``autotune.sweep`` spans timed
+    apart, outside the timed loops), then untuned, tuned, tuned, untuned
+    (one fresh engine each, the sweeps' winners cached): every estimate
+    bit-equal to the untuned paths' earlier runs, the seconds per coloring
+    of both, and the autotuner's cache counters. Returns the first tuned
+    run's launches by path."""
+    import statistics
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import autotune
+    from repro_torch.obs import tracing
+
+    specs = census_specs(10)
+    autotune.clear_cache()
+
+    def query(templates, iters, budget, tuned=True, **kw):
+        return api.compile_query(g, api.CountQuery(
+            templates=templates, max_iters=iters, round_size=iters,
+            plan=kw.pop("plan", "optimized"), seed=0,
+            memory_budget_bytes=budget, **kw),
+            engine_kw={"autotune_blocks": tuned})
+
+    cases = (
+        ("u12", 32 * GIB, lambda it, tu: query("u12", it, 32 * GIB, tu), 4,
+         8, [est_u12]),
+        ("census", CENSUS_BUDGET, lambda it, tu: query(
+            tuple(specs), it, CENSUS_BUDGET, tu, plan="dedup"), 2, 8,
+         est_census),
+        ("u13 chunked", 16 * GIB, lambda it, tu: query(
+            "u13", it, 16 * GIB, tu, batch_size=1), 1, 4, [est_u13]))
+    out = {}
+    for label, budget, make, warm_iters, iters, want in cases:
+        prev = tracing.set_tracer(tracing.Tracer(enabled=True))
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            make(warm_iters, True).run()
+            _sync()
+            warm = time.perf_counter() - t0
+            warm_peak = torch.cuda.max_memory_allocated()
+            sweep = tracing.get_tracer().breakdown().get(
+                "autotune.sweep", {"count": 0, "seconds": 0.0})
+        finally:
+            tracing.set_tracer(prev)
+        if sweep["count"] == 0:
+            raise AssertionError(f"the warm {label} run swept nothing")
+        secs = {False: [], True: []}
+        peaks = {}
+        for tuned in (False, True, True, False):
+            torch.cuda.empty_cache()
+            _reset_counts()
+            q = make(iters, tuned)
+            res = q.run()
+            _sync()
+            peaks.setdefault(tuned, torch.cuda.max_memory_allocated())
+            if tuned and label not in out:
+                out[label] = _read_counts()
+                batch, chunks = (q.engines[0].batch_size,
+                                 q.engines[0].schedule.chunk_map)
+            if [r.estimate for r in res] != want:
+                raise AssertionError(f"{label} (autotune_blocks={tuned}) "
+                                     f"estimates differ from the untuned "
+                                     f"path's")
+            secs[tuned].append(res[0].seconds / iters)
+            del q, res
+        plain, tuned_s = (statistics.mean(secs[False]),
+                          statistics.mean(secs[True]))
+        print(f"[autotune] {label} with autotune_blocks=True: warm run "
+              f"{warm:.3f} s holding {sweep['count']} sweeps of "
+              f"{sweep['seconds']:.3f} s; s_per_coloring untuned, tuned, "
+              f"tuned, untuned: {secs[False][0]:.4f} {secs[True][0]:.4f} "
+              f"{secs[True][1]:.4f} {secs[False][1]:.4f} (tuned / untuned "
+              f"{tuned_s / plain:.3f}); estimates bit-equal to the untuned "
+              f"path's ({want[0]!r}{' ...' if len(want) > 1 else ''}); "
+              f"batch={batch} chunk_map={chunks} launches={out[label]}; "
+              f"max_memory_allocated: warm (sweeping) run {warm_peak}, "
+              f"untuned {peaks[False]}, tuned {peaks[True]} (budget "
+              f"{budget}; sweeping - untuned {warm_peak - peaks[False]})",
+              flush=True)
+        torch.cuda.empty_cache()
+    winners = {}
+    for key, choice in autotune.cache_info().items():
+        winners.setdefault(key[0], []).append((key[1], choice))
+    for kind, picks in winners.items():
+        print(f"[autotune] winners, {kind}: {picks}", flush=True)
+    print(f"[autotune] counters: {_autotune_counters()}", flush=True)
+    return out
+
+
+def phase_rmat_defaults(g, est_b: dict, batch_b: int) -> dict:
+    """u12 on rmat(20) on the port's defaults: the BSR operand (its
+    nonzero index alone: no dense block on the card) and fusion, f32, 48
+    GiB, through ``compile_query(...).run()`` (``api.count``), one full
+    batch of path B's size (``batch_b`` colorings, path B's batch), so its
+    tables are those every caller with ``max_iters >= batch_b`` holds. Its
+    estimate is held against path B's gather engine on the same colorings
+    (its first ``batch_b`` samples). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    torch.cuda.empty_cache()
+    _reset_counts()
+    t0 = time.perf_counter()
+    q = api.compile_query(g, api.CountQuery(
+        templates="u12", max_iters=batch_b, round_size=batch_b,
+        plan="optimized", seed=0, memory_budget_bytes=CENSUS_BUDGET))
+    built = time.perf_counter() - t0
+    eng = q.engine
+    prep = eng._spmm_prep
+    if not isinstance(prep, spmm_ops.BsrPrep) or eng._fused_prep is not prep:
+        raise AssertionError("the default engine did not build the BSR "
+                             "operand for both its SpMM and fused kernels")
+    if not eng.exec_choice.fits:
+        raise AssertionError(
+            f"u12 on rmat(20) does not fit {CENSUS_BUDGET} B on the BSR "
+            f"walk: one coloring's tables model "
+            f"{eng.exec_choice.peak_bytes_per_coloring} B")
+    print(f"[full] u12 rmat(20) on the defaults: BSR operand "
+          f"{prep.nbytes} B on the card (col_ptr "
+          f"{prep.col_ptr.numel() * 4} B, nz_src {prep.nnz} B; blocks="
+          f"{prep.n_blocks}, dense blocks would take "
+          f"{prep.n_blocks * 128 * 128 * 4} B) built in {built:.1f} s; fused "
+          f"nodes {eng.schedule.fused} batch={eng.batch_size}", flush=True)
+    try:
+        res = q.run()[0]
+        _sync()
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"u12 on rmat(20) on the BSR walk did not fit the card: operand "
+            f"{prep.nbytes} B, modeled tables {eng.peak_table_bytes} B at "
+            f"batch {eng.batch_size}") from e
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = float(np.mean(est_b["samples"][:batch_b]))
+    secs = res.seconds / res.iterations
+    print(f"[full] u12 rmat(20) on the defaults: estimate={res.estimate!r} "
+          f"(path B's gather engine on the same {batch_b} colorings "
+          f"{want!r}, rel "
+          f"{abs(res.estimate - want) / want:.2e}, rtol {PATH_RTOL:g}) "
+          f"s_per_coloring={secs:.4f} (path B {est_b['s_per_coloring']:.4f}) "
+          f"launches={launches} max_memory_allocated={peak} "
+          f"({peak / GIB:.2f} GiB; modeled tables {eng.peak_table_bytes} + "
+          f"operand {prep.nbytes}) at batch {eng.batch_size}", flush=True)
+    if eng.batch_size != batch_b:
+        raise AssertionError(f"the default engine's batch is "
+                             f"{eng.batch_size}, path B's {batch_b}")
+    if not (res.iterations == batch_b and math.isclose(res.estimate, want,
+                                                 rel_tol=PATH_RTOL)):
+        raise AssertionError(f"rmat(20) default estimate {res.estimate} != "
+                             f"path B's {want}")
+    if peak > CENSUS_BUDGET + prep.nbytes:
+        raise AssertionError(f"rmat(20) peak {peak} over the budget plus "
+                             f"the operand")
+    if not (launches["spmm_bsr"] and launches["fused_spmm_ema"]) \
+            or launches["spmm_gather"]:
+        raise AssertionError(f"the default path's launches are off: "
+                             f"{launches}")
+    del q, eng, prep, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -2112,6 +2583,7 @@ def main() -> int:
 
     phase_build()
     _sync()
+    phase_peaks()
     g = grid_2d(1024, 1024)
     kern = phase_kernels(g)
     _sync()
@@ -2131,7 +2603,7 @@ def main() -> int:
     _sync()
     by_path.update(phase_regimes(g))
     _sync()
-    by_path["census10_grid"], batch_a, group_a, c_p, shapes_a = \
+    by_path["census10_grid"], batch_a, group_a, c_p, shapes_a, census = \
         phase_census_full(g)
     _sync()
     group = phase_group_kernel(g, batch_a, group_a)
@@ -2149,7 +2621,11 @@ def main() -> int:
     by_path["u12_rmat20"], batch_b, shapes_b, est_b = \
         phase_gather_full(g_rmat)
     _sync()
-    by_path["u12_rmat20_degree"] = phase_degree_rmat(g_rmat, est_b)
+    by_path["u12_rmat20_degree"] = phase_degree_rmat(g_rmat,
+                                                     est_b["count"])
+    _sync()
+    by_path["u12_rmat20_defaults"] = phase_rmat_defaults(g_rmat, est_b,
+                                                         batch_b)
     _sync()
     gather = phase_gather_kernel(g_rmat, batch_b)
     _sync()
@@ -2158,6 +2634,12 @@ def main() -> int:
     _sync()
     by_path["u13_chunked_grid"], est_u13 = phase_chunked_full(
         g, chunk[(torch.float32, 1716)])
+    _sync()
+    tuning = phase_autotune_kernels(g, g_rmat, batch_a, batch_b)
+    _sync()
+    for label, counts in phase_autotune_full(
+            g, res_u12.estimate, census, est_u13).items():
+        by_path[f"autotune_{label.replace(' ', '_')}"] = counts
     _sync()
     mesh = phase_reorder_mesh(g)
     for label, counts in mesh.items():
@@ -2204,12 +2686,22 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
+                     "bound_ms_measured": m["bound_ms_measured"],
+                     "roof_fraction": m["roof_fraction"],
                      "library_ms": m["library_ms"],
                      "library_transposed_ms": m["library_transposed_ms"]})
+        # the autotuner's launch shapes at this kernel's paths' shapes
+        tuned = [{k: r[k] for k in ("shape", "default", "winner", "ms",
+                                    "bound_ms_measured", "roof_fraction")}
+                 for r in tuning if r["name"] == name]
+        if tuned:
+            rows[-1]["autotune"] = tuned
         # the costliest shape of the kernel on the other paths
         at = [dict(path=p, shape=r["shape"],
                    launches_per_batch=r["launches_per_batch"], ms=r["ms"],
-                   bound_ms=r["bound_ms"], plain_ms=r["plain_ms"],
+                   bound_ms=r["bound_ms"],
+                   bound_ms_measured=r["bound_ms_measured"],
+                   roof_fraction=r["roof_fraction"], plain_ms=r["plain_ms"],
                    max_abs_err=r["max_abs_err"])
               for p, sw in sweeps.items() for k, r in sw.items() if k == name]
         if at:
@@ -2218,6 +2710,7 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on its path")
     print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    print(f"[peaks] measured: {json.dumps(PEAKS)}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,17 +100,20 @@ class CompiledQuery:
     counters, fusion report and memory model) for introspection. With an
     ``engine_cache`` (:class:`~repro_torch.service.cache.EngineCache`) the
     group engines come from it, keyed by canonical hashes and the device.
+    ``engine_kw`` are further :class:`CountingEngine` keywords for every
+    group engine (``{"autotune_blocks": True}``, ``{"spmm_method":
+    "gather"}``), part of the engine cache's key.
     """
 
     def __init__(self, g, query: CountQuery, *, dtype=None, device=None,
-                 engine_cache=None):
+                 engine_cache=None, engine_kw: dict | None = None):
         query.validate()
         self.g = g
         self.query = query
         by_k: dict[int, list[int]] = {}
         for i, spec in enumerate(query.templates):
             by_k.setdefault(spec.k, []).append(i)
-        kw = {"device": device}
+        kw = {**(engine_kw or {}), "device": device}
         if query.memory_budget_bytes is not None:
             kw["memory_budget_bytes"] = int(query.memory_budget_bytes)
         if query.reorder:
@@ -187,12 +190,14 @@ class CompiledQuery:
 
 
 def compile_query(g, query: CountQuery, *, dtype=None, device=None,
-                  engine_cache=None) -> CompiledQuery:
+                  engine_cache=None, engine_kw: dict | None = None
+                  ) -> CompiledQuery:
     """Lower a :class:`CountQuery` onto ``g``: one fused engine per k
     (served from ``engine_cache`` when given: two spellings of the same
-    tree share one engine)."""
+    tree share one engine), built with ``engine_kw`` besides the query's
+    own options."""
     return CompiledQuery(g, query, dtype=dtype, device=device,
-                         engine_cache=engine_cache)
+                         engine_cache=engine_cache, engine_kw=engine_kw)
 
 
 def count_many(g, templates, *, rel_stderr: float | None = None,
@@ -201,7 +206,8 @@ def count_many(g, templates, *, rel_stderr: float | None = None,
                plan: str = "optimized", round_size: int = 8,
                memory_budget_bytes: int | None = None,
                batch_size: int | None = None, reorder: str | None = None,
-               dtype=None, device=None) -> list[RequestResult]:
+               dtype=None, device=None,
+               engine_kw: dict | None = None) -> list[RequestResult]:
     """Estimate counts for N templates with cross-template subplan sharing.
 
     Accepts any mix of registry names, :class:`TemplateSpec`, TreeTemplate
@@ -210,7 +216,8 @@ def count_many(g, templates, *, rel_stderr: float | None = None,
     still come from exactly the colorings a solo :func:`count` with the
     same seed would draw. Runs on CUDA unless ``device="cpu"``; ``dtype``
     is the table storage dtype (f32 by default, or bf16); ``reorder``
-    relabels the graph once per engine (:class:`CountQuery`).
+    relabels the graph once per engine (:class:`CountQuery`); ``engine_kw``
+    are further engine keywords, e.g. ``{"autotune_blocks": True}``.
     """
     if rel_stderr is None and max_iters is None:
         max_iters = DEFAULT_MAX_ITERS
@@ -222,7 +229,8 @@ def count_many(g, templates, *, rel_stderr: float | None = None,
         plan=plan, round_size=round_size,
         memory_budget_bytes=memory_budget_bytes, batch_size=batch_size,
         reorder=reorder)
-    return compile_query(g, query, dtype=dtype, device=device).run()
+    return compile_query(g, query, dtype=dtype, device=device,
+                         engine_kw=engine_kw).run()
 
 
 def count(g, template, **kw) -> RequestResult:

@@ -19,7 +19,7 @@ combine adds the splits in order. FASCIA's per-split sweep is the paper's
 §3.1 redundancy, kept on purpose: the baseline's cost is the point.
 
 PGBSC: combination-major ``(B, C, N)`` count tables, one SpMM ``Y = M_p @ A``
-per distinct passive child (over the BSR blocks or, with
+per distinct passive child (over the BSR nonzero index or, with
 ``spmm_method="gather"``, the edge stream) and an eMA per plan node — or
 both in one fused kernel launch where the passive child has a single
 consumer, or one shared-passive group launch where several template roots
@@ -130,6 +130,11 @@ class CountingEngine:
     reference. ``batch_size`` overrides the derived batch. ``reorder``
     ("rcm" or "degree") permutes the graph once here; callers pass
     colorings and read root tables in their own vertex ids.
+    ``autotune_blocks=True`` lets the autotuner pick the launch shapes of
+    the passive SpMM, the eMA and the chunked walk's row-chunk SpMM, once
+    per shape (``kernels/autotune.py``), as the reference's
+    ``_build_pgbsc`` does; the fused, group and chunk-accumulate kernels
+    keep theirs.
     ``device=None`` runs on CUDA and raises without a card;
     ``device="cpu"`` runs the kernels' plain versions.
     """
@@ -138,7 +143,8 @@ class CountingEngine:
                  spmm_method: str = "bsr", plan: str | None = None,
                  dtype=torch.float32, batch_size: int | None = None,
                  memory_budget_bytes: int | None = None,
-                 fuse_spmm_ema: bool = True, reorder: str | None = None,
+                 fuse_spmm_ema: bool = True,
+                 autotune_blocks: bool = False, reorder: str | None = None,
                  device=None):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; choose from "
@@ -214,6 +220,7 @@ class CountingEngine:
                 "optimized": self.template.plan_optimized}[plan_name]
             self.roots = (self.plan.n_nodes - 1,)
         self.fuse_spmm_ema = bool(fuse_spmm_ema and engine == "pgbsc")
+        self.autotune_blocks = bool(autotune_blocks)
         # per-node fusion decisions (idx -> "admitted" | "admitted_shared" |
         # rejection reason); empty when fusion was not requested
         self.fusion_report: dict[int, str] = {}
@@ -372,8 +379,9 @@ class CountingEngine:
         self._nbr = self._mask = None
         self._spmm_prep = spmm_ops.prepare(self.g, self.spmm_method,
                                            dtype=self.dtype,
-                                           device=self.device)
-        # fused nodes walk the BSR blocks whatever the SpMM operand is; a
+                                           device=self.device,
+                                           reorder=self.reorder or "")
+        # fused nodes walk the BSR index whatever the SpMM operand is; a
         # node both fused and chunked runs chunked
         chunk_map = self.schedule.chunk_map
         if not set(self.schedule.fused) - set(chunk_map):
@@ -383,7 +391,8 @@ class CountingEngine:
         else:
             self._fused_prep = spmm_ops.prepare(self.g, "bsr",
                                                 dtype=self.dtype,
-                                                device=self.device)
+                                                device=self.device,
+                                                reorder=self.reorder or "")
         # static split tables per internal plan node, and the chunked pair
         # walk of each node the memory model chunked
         for idx, node in enumerate(self.plan.nodes):
@@ -600,15 +609,16 @@ class CountingEngine:
         splits, prep, fprep = self._splits, self._spmm_prep, self._fused_prep
         walks = self._chunk_walks
         runner = pexec.PlanExecutor(self.plan, self.schedule)
+        autotune = self.autotune_blocks
 
         def passive_op(p_idx, m_p):
             # SpMM over *all* passive color sets at once (Algorithm 4 l.3);
             # the executor's y-cache shares it between consumers
-            return spmm_ops.spmm(m_p, prep)
+            return spmm_ops.spmm(m_p, prep, autotune=autotune)
 
         def combine(idx, m_a, y_p):
             ia, ip = splits[idx]
-            return ema_ops.ema(m_a, y_p, ia, ip)
+            return ema_ops.ema(m_a, y_p, ia, ip, autotune=autotune)
 
         def combine_direct(idx, m_a, m_p):
             # chunking wins over fusion when the memory model assigned both
@@ -616,7 +626,8 @@ class CountingEngine:
                 # colorset-chunked node: the passive SpMM output is made
                 # and consumed one slice of C(k, t_p) rows at a time
                 return ema_ops.ema_chunked(
-                    m_a, m_p, walks[idx], lambda m: spmm_ops.spmm(m, prep))
+                    m_a, m_p, walks[idx],
+                    lambda m: spmm_ops.spmm(m, prep, autotune=autotune))
             # fused node: SpMM and eMA in one launch; the neighbor sums
             # live only in shared memory
             ia, ip = splits[idx]

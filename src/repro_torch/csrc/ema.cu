@@ -6,24 +6,28 @@
 //
 // An input row is selected by S * L / C output rows (6 for m_a at u12's
 // node 6), so the kernel's work is to read each from device memory once
-// per colouring. Two paths, chosen at launch:
-//   * staged: a CUDA block owns EMA_W columns of one colouring and all S
+// per colouring. Two paths, chosen by the wrapper (kernels/ema/ops.py):
+//   * staged: a CUDA block owns W columns of one colouring and all S
 //     output rows. It stages m_a[b, :, slice] and y_p[b, :, slice]
-//     (c_a + c_p rows of 128 bytes in f32) into shared memory with
-//     cp.async, once, then computes every output row from there: a
-//     half-warp takes a row, a lane two adjacent columns, and a half-warp
-//     sums EMA_ROWS_AT_ONCE rows side by side. The split table comes
+//     (c_a + c_p rows of 4W bytes in f32) into shared memory with
+//     cp.async, once, then computes every output row from there: W / 2
+//     lanes (a half-warp at W = 32) take a row, a lane two adjacent
+//     columns, and they sum EMA_ROWS_AT_ONCE rows side by side. The split table comes
 //     packed as element offsets into the slice, two terms to an int4
 //     (pack_pairs_kernel, one small launch first), so a term costs one
 //     broadcast read every other term besides its two operand reads.
-//     Taken when S > EMA_ROWS and the slice fits a block's shared memory
+//     Taken when S > 8 and a 32-column slice fits a block's shared memory
 //     (c_a + c_p <= 1,816 in f32, 3,632 in bf16).
-//   * direct: a CUDA block takes EMA_ROWS output rows and EMA_THREADS
-//     columns and reads its rows from device memory, threads along v. The
-//     blocks of one column range run one after another (the row blocks are
-//     the fastest grid index), so the rows they share come from L2. Taken
-//     when S <= EMA_ROWS (one row block: each input row is read once
-//     anyway, as at a census root) or the slice does not fit.
+//   * direct: a CUDA block takes ROWS output rows and EMA_THREADS columns
+//     and reads its rows from device memory, threads along v. The blocks
+//     of one column range run one after another (the row blocks are the
+//     fastest grid index), so the rows they share come from L2. Taken
+//     when S <= 8 (one row block: each input row is read once anyway, as
+//     at a census root) or the slice does not fit.
+// The launch shape is the autotuner's choice (kernels/autotune.py,
+// ema_blocks): the slice width W of the staged path (16, 32 or 64; 32 by
+// default) or the output rows ROWS of a direct block (4, 8 or 16; 8 by
+// default), one instantiation each. Neither changes the order of a sum.
 // Both sum the L terms of an output in ascending l, in f32 for f32 and
 // bf16 storage, round once at the store and write exactly the (B, S, n)
 // output: rows past S and columns past n are never touched.
@@ -37,27 +41,25 @@
 
 namespace {
 
-constexpr int EMA_THREADS = 256;        // direct path: columns of a block
-constexpr int EMA_ROWS = 8;             // direct path: output rows a block
-constexpr int EMA_W = 32;               // staged path: columns of a slice
+constexpr int EMA_THREADS = 256;         // direct path: columns of a block
 constexpr int EMA_STAGED_THREADS = 512;  // staged path: 16 warps
-constexpr int EMA_ROWS_AT_ONCE = 2;      // staged path: a half-warp's rows
+constexpr int EMA_ROWS_AT_ONCE = 2;      // staged path: a lane group's rows
 
 // The staged path's split table: a term's m_a and y_p rows as element
-// offsets into the staged slice (y_p's rows follow m_a's), two terms to an
-// int4, so one broadcast read brings both offsets of two terms; the last
-// int4 of a row with odd L holds one. pairs has s * ((l + 1) / 2) int4s.
+// offsets into the staged slice of w columns (y_p's rows follow m_a's),
+// two terms to an int4, so one broadcast read brings both offsets of two
+// terms; the last int4 of a row with odd L holds one. pairs has s * ((l +
+// 1) / 2) int4s.
 __global__ void pack_pairs_kernel(const int* __restrict__ ia,
                                   const int* __restrict__ ip, int s, int l,
-                                  int c_a, int4* __restrict__ pairs) {
+                                  int c_a, int w, int4* __restrict__ pairs) {
   const int halves = (l + 1) / 2;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= s * halves) return;
   const int j = i / halves, q = j * l + 2 * (i % halves);
   const bool two = 2 * (i % halves) + 1 < l;
-  pairs[i] = make_int4(ia[q] * EMA_W, (c_a + ip[q]) * EMA_W,
-                       two ? ia[q + 1] * EMA_W : 0,
-                       two ? (c_a + ip[q + 1]) * EMA_W : 0);
+  pairs[i] = make_int4(ia[q] * w, (c_a + ip[q]) * w, two ? ia[q + 1] * w : 0,
+                       two ? (c_a + ip[q + 1]) * w : 0);
 }
 
 __device__ __forceinline__ void fma_pair(float2& acc, float2 x, float2 z) {
@@ -65,7 +67,7 @@ __device__ __forceinline__ void fma_pair(float2& acc, float2 x, float2 z) {
   acc.y += x.y * z.y;
 }
 
-template <typename T>
+template <typename T, int EMA_W>
 __global__ void __launch_bounds__(EMA_STAGED_THREADS)
     ema_staged_kernel(const T* __restrict__ m_a, const T* __restrict__ y_p,
                       const int4* __restrict__ pairs, int s, int l, int c_a,
@@ -104,6 +106,7 @@ __global__ void __launch_bounds__(EMA_STAGED_THREADS)
   __syncthreads();
   // EMA_W / 2 lanes take an output row, a lane two adjacent columns
   constexpr int LANES = EMA_W / 2;
+  static_assert(32 % LANES == 0 || LANES % 32 == 0, "lanes tile warps");
   const int c = 2 * (threadIdx.x % LANES);
   const long long v = v0 + c;
   if (v >= n) return;
@@ -111,8 +114,9 @@ __global__ void __launch_bounds__(EMA_STAGED_THREADS)
   const bool pair_store = n % 2 == 0;  // v is even: aligned
   const int halves = l / 2, odd = l & 1;
   T* o = out + b * s * n + v;
-  // each half-warp sums EMA_ROWS_AT_ONCE consecutive output rows side by
-  // side, so the latency of each step's reads is paid once for all of them
+  // each group of LANES lanes sums EMA_ROWS_AT_ONCE consecutive output
+  // rows side by side, so the latency of each step's reads is paid once
+  // for all of them
   constexpr int R = EMA_ROWS_AT_ONCE;
   for (int j0 = threadIdx.x / LANES * R; j0 < s;
        j0 += EMA_STAGED_THREADS / LANES * R) {
@@ -151,7 +155,7 @@ __global__ void __launch_bounds__(EMA_STAGED_THREADS)
   }
 }
 
-template <typename T>
+template <typename T, int EMA_ROWS>
 __global__ void __launch_bounds__(EMA_THREADS)
     ema_direct_kernel(const T* __restrict__ m_a, const T* __restrict__ y_p,
                       const int* __restrict__ ia, const int* __restrict__ ip,
@@ -182,34 +186,40 @@ __global__ void __launch_bounds__(EMA_THREADS)
   }
 }
 
-template <typename T>
-int launch(const void* m_a, const void* y_p, const int* ia, const int* ip,
-           int s, int l, int c_a, int c_p, long long n, int batch,
-           void* pairs, void* out, cudaStream_t stream) {
+template <typename T, int EMA_W>
+int launch_staged(const void* m_a, const void* y_p, const int* ia,
+                  const int* ip, int s, int l, int c_a, int c_p, long long n,
+                  int batch, void* pairs, void* out, cudaStream_t stream) {
   const long long staged = (long long)(c_a + c_p) * EMA_W * sizeof(T);
-  if (s > EMA_ROWS && staged <= rt::SMEM_LIMIT) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ema_staged_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)staged);
-    if (e != cudaSuccess) return (int)e;
-    int4* packed = static_cast<int4*>(pairs);
-    const int n_pairs = s * ((l + 1) / 2);
-    pack_pairs_kernel<<<(n_pairs + 255) / 256, 256, 0, stream>>>(
-        ia, ip, s, l, c_a, packed);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)((n + EMA_W - 1) / EMA_W), batch);
-    ema_staged_kernel<T><<<grid, EMA_STAGED_THREADS, (size_t)staged,
-                           stream>>>(
-        static_cast<const T*>(m_a), static_cast<const T*>(y_p), packed, s, l,
-        c_a, c_p, n, static_cast<T*>(out));
-    return (int)cudaGetLastError();
-  }
-  const int smem = 2 * EMA_ROWS * l * (int)sizeof(int);
+  if (staged > rt::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      ema_staged_kernel<T, EMA_W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)staged);
+  if (e != cudaSuccess) return (int)e;
+  int4* packed = static_cast<int4*>(pairs);
+  const int n_pairs = s * ((l + 1) / 2);
+  pack_pairs_kernel<<<(n_pairs + 255) / 256, 256, 0, stream>>>(
+      ia, ip, s, l, c_a, EMA_W, packed);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((n + EMA_W - 1) / EMA_W), batch);
+  ema_staged_kernel<T, EMA_W>
+      <<<grid, EMA_STAGED_THREADS, (size_t)staged, stream>>>(
+          static_cast<const T*>(m_a), static_cast<const T*>(y_p), packed, s,
+          l, c_a, c_p, n, static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int EMA_ROWS>
+int launch_direct(const void* m_a, const void* y_p, const int* ia,
+                  const int* ip, int s, int l, int c_a, int c_p, long long n,
+                  int batch, void* out, cudaStream_t stream) {
+  const long long smem = 2LL * EMA_ROWS * l * (long long)sizeof(int);
+  if (smem > rt::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        ema_direct_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        ema_direct_kernel<T, EMA_ROWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int row_blocks = (s + EMA_ROWS - 1) / EMA_ROWS;
@@ -217,27 +227,64 @@ int launch(const void* m_a, const void* y_p, const int* ia, const int* ip,
   if (col_blocks * row_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)(col_blocks * row_blocks), batch);
-  ema_direct_kernel<T><<<grid, EMA_THREADS, smem, stream>>>(
+  ema_direct_kernel<T, EMA_ROWS><<<grid, EMA_THREADS, (size_t)smem, stream>>>(
       static_cast<const T*>(m_a), static_cast<const T*>(y_p), ia, ip, s, l,
       c_a, c_p, n, row_blocks, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 
+// s_block 0: the staged path, slices of n_block columns; otherwise the
+// direct path, s_block output rows of n_block = EMA_THREADS columns
+template <typename T>
+int launch(int s_block, int n_block, const void* m_a, const void* y_p,
+           const int* ia, const int* ip, int s, int l, int c_a, int c_p,
+           long long n, int batch, void* pairs, void* out,
+           cudaStream_t stream) {
+  if (s_block == 0) {
+    switch (n_block) {
+#define RT_STAGED(W)                                                       \
+  case W:                                                                  \
+    return launch_staged<T, W>(m_a, y_p, ia, ip, s, l, c_a, c_p, n, batch, \
+                               pairs, out, stream);
+      RT_STAGED(16)
+      RT_STAGED(32)
+      RT_STAGED(64)
+#undef RT_STAGED
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_block != EMA_THREADS) return (int)cudaErrorInvalidValue;
+  switch (s_block) {
+#define RT_DIRECT(R)                                                       \
+  case R:                                                                  \
+    return launch_direct<T, R>(m_a, y_p, ia, ip, s, l, c_a, c_p, n, batch, \
+                               out, stream);
+    RT_DIRECT(4)
+    RT_DIRECT(8)
+    RT_DIRECT(16)
+#undef RT_DIRECT
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. Tables are contiguous (batch, rows, n); pairs
-// is device scratch of s * ((l + 1) / 2) int4s (the staged path's split
-// table, pack_pairs_kernel). Returns the cudaError_t of the launch.
-extern "C" int rt_ema(int dtype, const void* m_a, const void* y_p,
-                      const int* ia, const int* ip, int s, int l, int c_a,
-                      int c_p, long long n, int batch, void* pairs, void* out,
-                      void* stream) {
+// dtype: 0 = f32, 1 = bf16. (s_block, n_block): (0, 16 | 32 | 64) runs
+// the staged path at that slice width, (4 | 8 | 16, 256) the direct path
+// at that many output rows a block. Tables are contiguous (batch, rows,
+// n); pairs is device scratch of s * ((l + 1) / 2) int4s (the staged
+// path's split table, pack_pairs_kernel). Returns the cudaError_t of the
+// launch.
+extern "C" int rt_ema(int dtype, int s_block, int n_block, const void* m_a,
+                      const void* y_p, const int* ia, const int* ip, int s,
+                      int l, int c_a, int c_p, long long n, int batch,
+                      void* pairs, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(m_a, y_p, ia, ip, s, l, c_a, c_p, n, batch, pairs,
-                         out, st);
+    return launch<float>(s_block, n_block, m_a, y_p, ia, ip, s, l, c_a, c_p,
+                         n, batch, pairs, out, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(m_a, y_p, ia, ip, s, l, c_a, c_p, n, batch,
-                                 pairs, out, st);
+    return launch<__nv_bfloat16>(s_block, n_block, m_a, y_p, ia, ip, s, l,
+                                 c_a, c_p, n, batch, pairs, out, st);
   return (int)cudaErrorInvalidValue;
 }

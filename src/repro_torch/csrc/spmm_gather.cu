@@ -26,10 +26,13 @@
 //    line as eight 16-byte vectors; the octet's lanes load eight source ids
 //    with one coalesced read (the next eight while this batch's lines are
 //    in flight) and broadcast them with shuffles, then keep eight line
-//    reads in flight. A CUDA block holds D = 128 destinations, four per
-//    octet, so a block waits on the sum of four runs rather than on its
-//    longest one, and writes its RC x D results through shared memory:
-//    each output row leaves as whole 128-byte segments.
+//    reads in flight. A CUDA block holds D destinations (128 by default,
+//    four per octet), so a block waits on the sum of four runs rather than
+//    on its longest one, and writes its RC x D results through shared
+//    memory: each output row leaves as whole 128-byte segments. D is the
+//    launch shape the autotuner chooses (kernels/autotune.py,
+//    spmm_c_block): one instantiation each of 32, 64 and 128. It changes
+//    neither the scratch's layout, nor the hub cut, nor any sum's order.
 // 3. hub_kernel: a power-law graph has hubs (rmat(20): a vertex of degree
 //    64,701), and one octet walking such a run would be the launch's tail.
 //    The host cuts every run longer than hub_degree into segments of
@@ -54,7 +57,6 @@ constexpr int OCT = 8;        // lanes per line: 16 bytes each
 constexpr int THREADS = 256;  // 8 warps
 constexpr int OCTETS = THREADS / OCT;
 constexpr int STAGE_V = 32;   // vertices per transpose tile
-constexpr int D = 128;        // destinations per gather block
 constexpr int SUMS = 2;       // running sums per lane and value
 
 template <typename T>
@@ -144,7 +146,7 @@ __global__ void __launch_bounds__(THREADS)
 // The first seg_blocks blocks: one hub segment per octet, its sums into
 // part[j * RC ..]. The rest: D destinations each, written to y (rows nr,
 // row stride n); hubs (runs longer than hub_degree) are left to hub_kernel.
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 4)
     gather_kernel(const T* __restrict__ s, long long n,
                   const int* __restrict__ src,
@@ -204,12 +206,12 @@ __global__ void hub_kernel(const float* __restrict__ part,
   y[(long long)r * n + hub_vertex[h]] = rt::from_f32<T>(acc);
 }
 
-template <typename T>
-int launch(const void* m, int rows, long long n, const int* src,
-           const long long* row_ptr, long long hub_degree,
-           const long long* seg, int n_seg, const int* hub_vertex,
-           const int* hub_seg_ptr, int n_hubs, void* scratch, float* part,
-           void* out, cudaStream_t stream) {
+template <typename T, int D>
+int launch_d(const void* m, int rows, long long n, const int* src,
+             const long long* row_ptr, long long hub_degree,
+             const long long* seg, int n_seg, const int* hub_vertex,
+             const int* hub_seg_ptr, int n_hubs, void* scratch, float* part,
+             void* out, cudaStream_t stream) {
   constexpr int RC = Cfg<T>::RC;
   const long long stage_blocks = (n + STAGE_V - 1) / STAGE_V;
   const long long seg_blocks = (n_seg + OCTETS - 1) / OCTETS;
@@ -223,7 +225,7 @@ int launch(const void* m, int rows, long long n, const int* src,
     T* yc = static_cast<T*>(out) + (long long)r0 * n;
     stage_kernel<T><<<(unsigned)stage_blocks, THREADS, 0, stream>>>(mc, nr, n,
                                                                     s);
-    gather_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    gather_kernel<T, D><<<(unsigned)blocks, THREADS, 0, stream>>>(
         s, n, src, row_ptr, hub_degree, seg, n_seg, (int)seg_blocks, nr, part,
         yc);
     if (n_hubs > 0)
@@ -235,12 +237,33 @@ int launch(const void* m, int rows, long long n, const int* src,
   return (int)cudaSuccess;
 }
 
+template <typename T>
+int launch(int dests, const void* m, int rows, long long n, const int* src,
+           const long long* row_ptr, long long hub_degree,
+           const long long* seg, int n_seg, const int* hub_vertex,
+           const int* hub_seg_ptr, int n_hubs, void* scratch, float* part,
+           void* out, cudaStream_t stream) {
+  switch (dests) {
+#define RT_DESTS(D)                                                          \
+  case D:                                                                    \
+    return launch_d<T, D>(m, rows, n, src, row_ptr, hub_degree, seg, n_seg, \
+                          hub_vertex, hub_seg_ptr, n_hubs, scratch, part,   \
+                          out, stream);
+    RT_DESTS(32)
+    RT_DESTS(64)
+    RT_DESTS(128)
+#undef RT_DESTS
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (storage; the sums are f32 either way).
+// dests: destinations a gather block holds, 32, 64 or 128 (the default).
 // scratch: n * 128 bytes; part: n_seg * (128 / itemsize) floats. Returns
 // the first cudaError_t of the launches.
-extern "C" int rt_spmm_gather(int dtype, const void* m, int rows,
+extern "C" int rt_spmm_gather(int dtype, int dests, const void* m, int rows,
                               long long n, const int* src,
                               const long long* row_ptr, long long hub_degree,
                               const long long* seg, int n_seg,
@@ -250,11 +273,12 @@ extern "C" int rt_spmm_gather(int dtype, const void* m, int rows,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if (dtype == 0)
-    return launch<float>(m, rows, n, src, row_ptr, hub_degree, seg, n_seg,
-                         hub_vertex, hub_seg_ptr, n_hubs, scratch, p, out, st);
+    return launch<float>(dests, m, rows, n, src, row_ptr, hub_degree, seg,
+                         n_seg, hub_vertex, hub_seg_ptr, n_hubs, scratch, p,
+                         out, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(m, rows, n, src, row_ptr, hub_degree, seg,
-                                 n_seg, hub_vertex, hub_seg_ptr, n_hubs,
+    return launch<__nv_bfloat16>(dests, m, rows, n, src, row_ptr, hub_degree,
+                                 seg, n_seg, hub_vertex, hub_seg_ptr, n_hubs,
                                  scratch, p, out, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -98,9 +98,13 @@ def block_nonzero_index(n_blocks: int, tile: int, edge_block, edge_src,
         raise ValueError(f"{len(col)} nonzeros overflow the int32 column "
                          f"pointer")
     order = np.lexsort((edge_src, col))
-    flat = np.searchsorted(col[order], np.arange(n_blocks * tile + 1))
-    col_ptr = flat[np.arange(n_blocks)[:, None] * tile
-                   + np.arange(tile + 1)].astype(np.int32)
+    # flat[i] = nonzeros before column i of the whole stream; block b's row
+    # of col_ptr is the window flat[b * tile : b * tile + tile + 1]
+    flat = np.zeros(n_blocks * tile + 1, np.int64)
+    np.cumsum(np.bincount(col, minlength=n_blocks * tile), out=flat[1:])
+    col_ptr = np.lib.stride_tricks.as_strided(
+        flat, shape=(n_blocks, tile + 1),
+        strides=(tile * flat.itemsize, flat.itemsize)).astype(np.int32)
     return col_ptr, edge_src[order].astype(np.uint8)
 
 

@@ -5,7 +5,8 @@ imports it): the graph's CSR arrays, the BSR block stream of its SpMM or
 fused prep (``np.asarray(engine._spmm_prep.arrays[...])``), the split
 tables of its plan nodes (``engine._splits``) and, for a multi-template
 bundle, its fused plan's roots (``engine.roots``). These functions turn them
-into the port's ``Graph``, BSR operand and split tables on a device, and
+into the port's ``Graph``, BSR operand (the carried blocks' nonzero index:
+the dense blocks stay on the host) and split tables on a device, and
 :func:`engine_from_state` builds a port engine that runs on exactly that
 state instead of rebuilding it.
 """
@@ -33,7 +34,8 @@ def graph_from_arrays(n: int, indptr, indices) -> Graph:
 def bsr_from_arrays(n: int, arrays: dict, *, dtype=torch.float32,
                     device=None) -> spmm_ops.BsrPrep:
     """The port's BSR operand from a reference prep's ``blocks``,
-    ``src_tile`` and ``dst_tile`` arrays."""
+    ``src_tile`` and ``dst_tile`` arrays: their nonzero index on
+    ``device``; the blocks are read on the host and not kept."""
     return spmm_ops.from_arrays(
         int(n), np.array(arrays["blocks"]), arrays["src_tile"],
         arrays["dst_tile"], dtype=dtype, device=resolve_device(device))
@@ -57,8 +59,9 @@ def engine_from_state(template, *, n: int, indptr, indices, bsr: dict,
     root node indices (``engine.roots``), which must name the port's own
     plan roots, so the carried split tables index the same nodes. The
     carried arrays must describe the same operand the port would build
-    (same block count and split-table shapes); the engine then runs on them
-    as given. ``engine_kw`` are :class:`CountingEngine` keywords.
+    (same block count, tile and nonzero count, and split-table shapes); the
+    engine then runs on them as given. ``engine_kw`` are
+    :class:`CountingEngine` keywords.
     """
     g = graph_from_arrays(n, indptr, indices)
     eng = CountingEngine(g, template, device=device, **engine_kw)
@@ -71,10 +74,12 @@ def engine_from_state(template, *, n: int, indptr, indices, bsr: dict,
         raise ValueError("this engine walks no BSR operand to carry over")
     prep = bsr_from_arrays(n, bsr, dtype=eng.dtype, device=eng.device)
     tables = splits_from_arrays(splits, device=eng.device)
-    if prep.blocks.shape != current.blocks.shape:
-        raise ValueError(f"carried BSR stream {tuple(prep.blocks.shape)} "
-                         f"does not fit this graph "
-                         f"{tuple(current.blocks.shape)}")
+    shape = (prep.n_blocks, prep.tile, tuple(prep.col_ptr.shape), prep.nnz)
+    want = (current.n_blocks, current.tile, tuple(current.col_ptr.shape),
+            current.nnz)
+    if shape != want:
+        raise ValueError(f"carried BSR stream (blocks, tile, col_ptr, "
+                         f"nonzeros) {shape} does not fit this graph {want}")
     if sorted(tables) != sorted(eng._splits) or any(
             tables[i][0].shape != eng._splits[i][0].shape for i in tables):
         raise ValueError("carried split tables do not match the plan")

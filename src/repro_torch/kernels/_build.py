@@ -23,7 +23,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["library", "kernel", "check", "BUILD_ROOT", "CSRC"]
+__all__ = ["library", "kernel", "check", "BUILD_ROOT", "CSRC",
+           "SMEM_LIMIT"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -31,6 +32,9 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v"]
 _LIB_NAME = "libreprotorch.so"
+# dynamic shared memory one block may have on the H100 (227 KB):
+# rt::SMEM_LIMIT in csrc/bsr_tile.cuh, which every kernel checks
+SMEM_LIMIT = 232_448
 _lib: list[ctypes.CDLL] = []
 _fns: dict[str, ctypes._CFuncPtr] = {}
 # the first load may come from two threads at once (the service's

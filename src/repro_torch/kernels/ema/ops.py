@@ -5,7 +5,10 @@ Tables are ``(C, N)`` or batched ``(B, C, N)``; a batch is one launch.
 bf16 storage accumulates in f32 and rounds once, at the store — the
 storage/accumulator contract of the JAX package's ``kernels/ema/ops.py``.
 On a CPU tensor :func:`ema` runs :func:`ema_plain`; on a CUDA tensor it
-launches ``csrc/ema.cu`` or raises.
+launches ``csrc/ema.cu`` or raises, at the launch shape ``(s_block,
+n_block)`` it is given, today's default, or the autotuner's choice
+(``autotune=True``; ``kernels/autotune.py``). The autotuner's sweep
+launches count in ``ema.sweep_launches``, apart from ``ema.launches``.
 
 The colorset-chunked eMA (:func:`ema_chunked`) never holds a node's whole
 passive neighbor-sum table: it walks the ``C(k, t_p)`` passive axis a
@@ -27,13 +30,25 @@ import torch
 
 from repro_torch.device import accum_dtype, card_dtype_code
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as _autotune
 
-__all__ = ["ema", "ema_plain", "ChunkedSplits", "ChunkWalk",
-           "pack_chunked_splits", "chunk_walk", "ema_chunk_acc",
-           "ema_chunk_acc_plain", "ema_chunked"]
+__all__ = ["ema", "ema_plain", "ema_path", "ema_shapes", "ema_sweep_launch",
+           "ChunkedSplits", "ChunkWalk", "pack_chunked_splits",
+           "chunk_walk", "ema_chunk_acc", "ema_chunk_acc_plain",
+           "ema_chunked"]
 
 # elements of one (batch, rows, N) accumulator block of the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 27
+# csrc/ema.cu's launch shapes (s_block, n_block): the staged path (s_block
+# 0) at slice widths _STAGED_W, the direct path at _DIRECT_ROWS output rows
+# of _DIRECT_COLS columns; each path's default first
+_STAGED_W = (32, 16, 64)
+_DIRECT_ROWS = (8, 4, 16)
+_DIRECT_COLS = 256
+# the staged path is taken for more output rows than a direct block's
+# default and a 32-column slice that fits a block's shared memory
+# (_build.SMEM_LIMIT), whatever shape the autotuner then picks
+_STAGED_MIN_S = 8
 
 
 def ema_plain(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
@@ -62,13 +77,37 @@ def ema_plain(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
     return out
 
 
-def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
-        ip: torch.Tensor) -> torch.Tensor:
-    """eMA of ``(..., Ca, N)`` and ``(..., Cp, N)`` tables with ``(S, L)``
-    int32 split tables: the plain version on CPU tensors, one launch of the
-    CUDA kernel on CUDA tensors."""
-    if m_a.device.type == "cpu":
-        return ema_plain(m_a, y_p, ia, ip)
+def ema_path(c_a: int, c_p: int, s: int, dtype: torch.dtype) -> str:
+    """``"staged"`` or ``"direct"``: the path the eMA kernel takes for these
+    table heights, ``S`` output rows and storage dtype (csrc/ema.cu)."""
+    slice_bytes = (c_a + c_p) * _STAGED_W[0] * dtype.itemsize
+    fits = slice_bytes <= _build.SMEM_LIMIT
+    return "staged" if s > _STAGED_MIN_S and fits else "direct"
+
+
+def _shape_fits(c_a, c_p, s, l, dtype, shape) -> bool:
+    s_block, n_block = shape
+    if ema_path(c_a, c_p, s, dtype) == "staged":
+        return (s_block == 0 and n_block in _STAGED_W
+                and (c_a + c_p) * n_block * dtype.itemsize
+                <= _build.SMEM_LIMIT)
+    return (n_block == _DIRECT_COLS and s_block in _DIRECT_ROWS
+            and 2 * s_block * l * 4 <= _build.SMEM_LIMIT)
+
+
+def ema_shapes(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
+               candidates=_autotune.EMA_BLOCK_CANDIDATES
+               ) -> tuple[tuple[int, int], ...]:
+    """The launch shapes among ``candidates`` the kernel can take for these
+    operands: shapes of the path it takes (:func:`ema_path`) that fit a
+    block's shared memory."""
+    s, l = ia.shape
+    return tuple(tuple(c) for c in candidates
+                 if _shape_fits(m_a.shape[-2], y_p.shape[-2], s, l,
+                                m_a.dtype, c))
+
+
+def _check(m_a, y_p, ia, ip) -> None:
     if m_a.shape[:-2] != y_p.shape[:-2] or m_a.shape[-1] != y_p.shape[-1]:
         raise ValueError(f"eMA tables disagree: {tuple(m_a.shape)} vs "
                          f"{tuple(y_p.shape)}")
@@ -81,32 +120,91 @@ def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
     if ia.dtype != torch.int32 or ip.dtype != torch.int32 \
             or ia.shape != ip.shape:
         raise TypeError("split tables must be two int32 (S, L) tensors")
-    code = card_dtype_code(m_a.dtype)
+    card_dtype_code(m_a.dtype)
+
+
+def _launch(m_a, y_p, ia, ip, shape, out) -> torch.Tensor:
+    """One launch of ``csrc/ema.cu`` at ``shape`` into ``out``; counts
+    nothing."""
     s, l = ia.shape
     n = m_a.shape[-1]
     batch = m_a.numel() // max(1, m_a.shape[-2] * n)
-    out = torch.empty(m_a.shape[:-2] + (s, n), dtype=m_a.dtype,
-                      device=m_a.device)
-    if out.numel() == 0:
-        return out
     # the staged path's split table: two terms' row offsets to an int4
     pairs = torch.empty(s * ((l + 1) // 2) * 4, dtype=torch.int32,
                         device=m_a.device)
     fn = _build.kernel("rt_ema", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m_a.device).cuda_stream
     _build.check("ema", fn(
-        code, m_a.data_ptr(), y_p.data_ptr(), ia.data_ptr(), ip.data_ptr(),
-        s, l, m_a.shape[-2], y_p.shape[-2], n, batch, pairs.data_ptr(),
-        out.data_ptr(), stream))
+        card_dtype_code(m_a.dtype), shape[0], shape[1], m_a.data_ptr(),
+        y_p.data_ptr(), ia.data_ptr(), ip.data_ptr(), s, l, m_a.shape[-2],
+        y_p.shape[-2], n, batch, pairs.data_ptr(), out.data_ptr(), stream))
+    return out
+
+
+def _empty_out(m_a, ia) -> torch.Tensor:
+    return torch.empty(m_a.shape[:-2] + (ia.shape[0], m_a.shape[-1]),
+                       dtype=m_a.dtype, device=m_a.device)
+
+
+def ema_sweep_launch(m_a, y_p, ia, ip, s_block: int, n_block: int,
+                     out: torch.Tensor):
+    """The autotuner's runner at one shape: a zero-argument callable that
+    launches the kernel into ``out`` (the wrapper's own output, which its
+    launch then overwrites, so a sweep takes no memory of its own), each
+    launch counted in ``ema.sweep_launches``."""
+
+    def run():
+        _launch(m_a, y_p, ia, ip, (s_block, n_block), out)
+        ema.sweep_launches += 1
+    return run
+
+
+def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
+        ip: torch.Tensor, *, s_block: int | None = None,
+        n_block: int | None = None, autotune: bool = False) -> torch.Tensor:
+    """eMA of ``(..., Ca, N)`` and ``(..., Cp, N)`` tables with ``(S, L)``
+    int32 split tables: the plain version on CPU tensors, one launch of the
+    CUDA kernel on CUDA tensors.
+
+    ``(s_block, n_block)`` is the launch shape, the reference's keywords
+    with the port's meanings: the output rows and the columns a CUDA block
+    owns. The staged path's block owns every output row (``s_block`` 0)
+    and a slice of ``n_block`` = 16, 32 (default) or 64 columns; the direct
+    path's ``s_block`` = 4, 8 (default) or 16 rows of ``n_block`` = 256
+    columns. The path is the kernel's own choice (:func:`ema_path`); a
+    shape of the other path raises. A missing half takes the path's
+    default; ``autotune=True`` sweeps the path's shapes once per key
+    (:func:`~repro_torch.kernels.autotune.ema_blocks`). All are ignored on
+    CPU tensors."""
+    if m_a.device.type == "cpu":
+        return ema_plain(m_a, y_p, ia, ip)
+    _check(m_a, y_p, ia, ip)
+    out = _empty_out(m_a, ia)
+    if out.numel() == 0:
+        return out
+    s, l = ia.shape
+    c_a, c_p = m_a.shape[-2], y_p.shape[-2]
+    if autotune and (s_block is None or n_block is None):
+        s_block, n_block = _autotune.ema_blocks(m_a, y_p, ia, ip, out=out)
+    path = ema_path(c_a, c_p, s, m_a.dtype)
+    default = ((0, _STAGED_W[0]) if path == "staged"
+               else (_DIRECT_ROWS[0], _DIRECT_COLS))
+    shape = (default[0] if s_block is None else s_block,
+             default[1] if n_block is None else n_block)
+    if not _shape_fits(c_a, c_p, s, l, m_a.dtype, shape):
+        raise ValueError(f"ema: the {path} path cannot launch (s_block, "
+                         f"n_block) = {shape} here")
+    _launch(m_a, y_p, ia, ip, shape, out)
     ema.launches += 1
     return out
 
 
 ema.launches = 0
+ema.sweep_launches = 0
 
 
 # --------------------------------------------------------------------------

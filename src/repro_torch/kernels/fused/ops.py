@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.ema.ops import ema_plain
 from repro_torch.kernels.spmm.ops import BsrPrep, _check_operands, spmm_acc
 
@@ -45,8 +46,6 @@ _Y_ITEM = 4
 # across them in a WARPS x TV f32 shared buffer (which holds a chunk of
 # the split table before)
 WARPS = 8
-# dynamic shared memory one block may have on the H100 (227 KB)
-SMEM_LIMIT = 232_448
 # consumers one shared-passive launch takes (MAX_GROUP in the kernel)
 MAX_GROUP = 16
 

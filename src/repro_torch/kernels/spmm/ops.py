@@ -1,13 +1,16 @@
 """SpMM ``Y = M @ A``: the CUDA kernels' wrappers and their plain versions,
 over two operands.
 
-``prepare(graph, "bsr")`` lifts the adjacency into the destination-sorted
-stream of dense 128x128 {0,1} blocks (``Graph.bsr``) on a device, plus the
-per-destination-tile run pointer ``tile_ptr`` the CUDA kernels walk and
+``prepare(graph, "bsr")`` puts the destination-sorted stream of 128x128
+adjacency blocks (``Graph.bsr_layout``) on a device as its nonzero index,
+never as dense blocks: each block's source and destination tile, the
+per-destination-tile run pointer ``tile_ptr`` the CUDA kernels walk, and
 each block's nonzeros by destination column (``col_ptr``, ``nz_src``:
-``structure.block_nonzero_index``). The BSR SpMM and the fused kernel
-walk only those nonzeros; the shared-passive group kernel still
-multiplies the dense blocks.
+``structure.block_nonzero_index``). The BSR SpMM, the fused and the group
+kernels walk only those nonzeros, and so does the plain version
+(:func:`spmm_acc`); the dense blocks exist only on the host
+(``Graph.bsr``), so a social graph whose occupied blocks would take
+hundreds of GB dense takes a few GB here.
 ``prepare(graph, "gather")`` puts the destination-sorted edge stream
 (``Graph.gather_layout``) there instead, with its hubs' segments: no
 blocks, so it fits graphs whose dense blocks would not (a social graph's
@@ -20,11 +23,15 @@ for a whole coloring batch, as in the JAX package's ``kernels/spmm/ops.py``
 — and dispatches on the prep's kind.
 
 On a CPU tensor :func:`spmm` runs the plain version (:func:`spmm_plain`,
-:func:`spmm_gather_plain`); on a CUDA tensor it launches
-``csrc/spmm_bsr.cu`` or ``csrc/spmm_gather.cu``, or raises.
+:func:`spmm_gather_plain`) and ignores the launch shape; on a CUDA tensor
+it launches ``csrc/spmm_bsr.cu`` or ``csrc/spmm_gather.cu``, or raises.
+The launch shape (``c_block``: table rows a BSR block takes, destinations
+a gather block holds) is today's default unless given, or chosen by the
+autotuner with ``autotune=True`` (``kernels/autotune.py``).
 ``spmm.launches`` counts BSR launches, ``spmm_gather.launches`` the
 gather wrapper's calls that reach the card (each launches a transpose, a
-gather and, with hubs, a hub pass per chunk of rows).
+gather and, with hubs, a hub pass per chunk of rows); the autotuner's
+sweeps count theirs apart, in ``.sweep_launches``.
 
 Three more backends are the JAX package's XLA ones, with no Pallas kernel
 behind them, so torch's own ops serve on either device
@@ -47,11 +54,12 @@ import torch
 from repro_torch.device import accum_dtype, card_dtype_code, resolve_device
 from repro_torch.graph.structure import Graph, block_nonzero_index
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as _autotune
 
 __all__ = ["BsrPrep", "GatherPrep", "OpsPrep", "METHODS", "prepare",
-           "from_arrays", "spmm", "spmm_plain", "spmm_ops", "ell_sweep",
-           "spmm_gather",
-           "spmm_gather_plain", "spmm_row_chunk"]
+           "from_arrays", "spmm", "spmm_plain", "spmm_ops",
+           "ell_sweep", "spmm_gather", "spmm_gather_plain", "spmm_row_chunk",
+           "bsr_shapes", "gather_shapes", "BSR_ROWS", "GATHER_DESTS"]
 
 # operand kinds of prepare(): the JAX package's "pallas_bsr" and
 # "pallas_gather" backends, then its XLA ones
@@ -59,7 +67,7 @@ METHODS = ("bsr", "gather", "segment", "ell", "dense")
 # the backends torch's own ops run (OpsPrep)
 OPS_METHODS = ("segment", "ell", "dense")
 
-# elements of the plain version's gathered (rows, blocks, tile) operand per
+# elements of the plain version's gathered (rows, nonzeros) operand per
 # chunk: bounds its working memory at full graph size
 _PLAIN_CHUNK_ELEMS = 1 << 27
 # elements of the segment backend's gathered (edges, rows) block per chunk
@@ -74,16 +82,32 @@ _GATHER_LINE = 128
 # this many edges, one octet's work each, so no run is the launch's tail
 # (tools/spmm_compare.py --hub-sweep; its readings on rmat(20) in PERF.md)
 HUB_DEGREE = 128
+# the launch shapes csrc/spmm_bsr.cu and csrc/spmm_gather.cu compile, and
+# their defaults (rt::SP_ROWS rows a BSR block; destinations a gather block)
+BSR_ROWS = (2, 4, 8, 16, 32, 64)
+# blocks of a destination tile's run the BSR walks sum into one partial
+# before adding it to the column's total (rt::RUN_SEG in
+# csrc/bsr_sparse_tile.cuh): a hub column's one long f32 chain loses
+# precision (PERF.md §6)
+RUN_SEG = 16
+BSR_ROWS_DEFAULT = 32
+GATHER_DESTS = (32, 64, 128)
+GATHER_DESTS_DEFAULT = 128
+_MAX_GRID_Y = 65535
+_MAX_GRID_X = (1 << 31) - 1
 
 
 @dataclasses.dataclass
 class BsrPrep:
-    """The BSR adjacency on one device (shared by the SpMM and fused
-    kernels). Block ``b`` is ``A[src_tile[b] tile, dst_tile[b] tile]``;
-    destination tile ``t`` owns blocks ``tile_ptr[t]:tile_ptr[t+1]``."""
+    """The BSR adjacency on one device as its nonzero index (shared by the
+    SpMM, fused and group kernels); it holds no dense blocks. Block ``b``
+    is ``A[src_tile[b] tile, dst_tile[b] tile]``; destination tile ``t``
+    owns blocks ``tile_ptr[t]:tile_ptr[t+1]``. ``dtype`` is the storage
+    dtype of the tables it multiplies; ``reorder`` names the vertex order
+    it was built in (the autotuner's key)."""
 
     n: int
-    blocks: torch.Tensor    # (n_blocks, tile, tile) storage dtype, {0, 1}
+    n_blocks: int
     src_tile: torch.Tensor  # (n_blocks,) int32
     dst_tile: torch.Tensor  # (n_blocks,) int32, ascending
     tile_ptr: torch.Tensor  # (n_tiles + 1,) int32
@@ -93,18 +117,13 @@ class BsrPrep:
     # c + 1]] of its source tile (structure.block_nonzero_index)
     col_ptr: torch.Tensor   # (n_blocks, tile + 1) int32
     nz_src: torch.Tensor    # (nnz,) uint8
+    device: torch.device
+    dtype: torch.dtype
+    reorder: str = ""
 
     @property
-    def n_blocks(self) -> int:
-        return int(self.blocks.shape[0])
-
-    @property
-    def device(self) -> torch.device:
-        return self.blocks.device
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.blocks.dtype
+    def nnz(self) -> int:
+        return int(self.nz_src.numel())
 
     @property
     def index_bytes(self) -> int:
@@ -112,6 +131,14 @@ class BsrPrep:
         walk."""
         return (self.col_ptr.numel() * self.col_ptr.element_size()
                 + self.nz_src.numel())
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the whole operand: the nonzero index and the
+        block stream's tiles and run pointer."""
+        return self.index_bytes + sum(
+            t.numel() * t.element_size()
+            for t in (self.src_tile, self.dst_tile, self.tile_ptr))
 
 
 @dataclasses.dataclass
@@ -135,6 +162,7 @@ class GatherPrep:
     hub_vertex: torch.Tensor   # (n_hubs,) int32, ascending
     hub_seg_ptr: torch.Tensor  # (n_hubs + 1,) int32
     seg: torch.Tensor          # (n_segments, 2) int64, [first, end) edge
+    reorder: str = ""          # the vertex order (the autotuner's key)
 
     @property
     def device(self) -> torch.device:
@@ -182,68 +210,69 @@ class OpsPrep:
 
 def from_arrays(n: int, blocks, src_tile, dst_tile, *,
                 dtype=torch.float32, device=None) -> BsrPrep:
-    """A prep from the block stream as arrays (numpy or torch); builds the
-    run pointer from the sorted ``dst_tile`` and the nonzero index from
-    the blocks' nonzeros. ``device=None`` is CUDA."""
+    """A prep from a host block stream as arrays (numpy or torch; the
+    reference's ``blocks``): builds the run pointer from the sorted
+    ``dst_tile`` and the nonzero index from the blocks' nonzeros, and keeps
+    no blocks. ``device=None`` is CUDA."""
     blocks = torch.as_tensor(blocks)
     nz = [t.cpu().numpy() for t in torch.nonzero(blocks, as_tuple=True)]
-    col_ptr, nz_src = block_nonzero_index(
-        int(blocks.shape[0]), int(blocks.shape[-1]), *nz)
-    return _bsr_prep(n, blocks, src_tile, dst_tile, col_ptr, nz_src,
+    n_blocks, tile = int(blocks.shape[0]), int(blocks.shape[-1])
+    col_ptr, nz_src = block_nonzero_index(n_blocks, tile, *nz)
+    return _bsr_prep(n, n_blocks, tile, src_tile, dst_tile, col_ptr, nz_src,
                      dtype=dtype, device=resolve_device(device))
 
 
-def _bsr_prep(n, blocks, src_tile, dst_tile, col_ptr, nz_src, *, dtype,
-              device) -> BsrPrep:
+def _bsr_prep(n, n_blocks, tile, src_tile, dst_tile, col_ptr, nz_src, *,
+              dtype, device, reorder: str = "") -> BsrPrep:
     dst_np = np.array(dst_tile, np.int32)     # a writable copy for torch
     if np.any(np.diff(dst_np) < 0):
         raise ValueError("dst_tile must be sorted ascending")
-    tile = int(blocks.shape[-1])
     n_tiles = -(-n // tile)
     tile_ptr = np.searchsorted(dst_np, np.arange(n_tiles + 1)).astype(np.int32)
     if np.any(np.diff(tile_ptr) == 0):
         raise ValueError("every destination tile needs at least one block")
+    col_ptr = torch.as_tensor(col_ptr, device=device)
     return BsrPrep(
-        n=n, blocks=blocks.to(device=device, dtype=dtype),
+        n=n, n_blocks=int(n_blocks),
         src_tile=torch.as_tensor(np.array(src_tile, np.int32),
                                  device=device),
         dst_tile=torch.as_tensor(dst_np, device=device),
         tile_ptr=torch.as_tensor(tile_ptr, device=device),
-        tile=tile, n_tiles=n_tiles,
-        col_ptr=torch.as_tensor(col_ptr, device=device),
-        nz_src=torch.as_tensor(nz_src, device=device))
+        tile=tile, n_tiles=n_tiles, col_ptr=col_ptr,
+        nz_src=torch.as_tensor(nz_src, device=device),
+        # the tensors' own device: "cuda" resolves to "cuda:0" there
+        device=col_ptr.device, dtype=dtype, reorder=reorder or "")
 
 
 def prepare(g: Graph, method: str = "bsr", *, dtype=torch.float32,
-            device=None, tile: int = 128) -> BsrPrep | GatherPrep:
+            device=None, tile: int = 128, reorder: str = ""
+            ) -> BsrPrep | GatherPrep | OpsPrep:
     """The SpMM operand of ``g`` on ``device`` (``None`` is CUDA).
 
-    ``"bsr"``: the dense blocks in storage dtype ``dtype``, densified where
-    they live from the edges' slots, so the host never holds the dense
-    stream, and their nonzero index, built on the host. ``"gather"``: the
-    edge stream, its run pointers and the segments of its hubs (vertices
-    of more than ``HUB_DEGREE`` edges). It holds no values, so ``dtype``
-    does not enter. ``"segment"``, ``"ell"`` and ``"dense"``: the edge
-    stream, the padded neighbor table (``Graph.ell``) or the dense
-    adjacency (:class:`OpsPrep`)."""
+    ``"bsr"``: the block stream's nonzero index, built on the host; no
+    dense block is made on any device. ``dtype`` is the storage dtype of
+    the tables it will multiply. ``"gather"``: the edge stream, its run
+    pointers and the segments of its hubs (vertices of more than
+    ``HUB_DEGREE`` edges). It holds no values, so ``dtype`` does not
+    enter. ``"segment"``, ``"ell"`` and ``"dense"``: the edge stream, the
+    padded neighbor table (``Graph.ell``) or the dense adjacency
+    (:class:`OpsPrep`). ``reorder`` tags the BSR and gather operands with
+    the vertex order ``g`` is in (the autotuner's key)."""
     if method not in METHODS:
         raise ValueError(f"unknown SpMM operand {method!r}; "
                          f"choose from {METHODS}")
     device = resolve_device(device)
     if method == "gather":
-        return _gather_prep(g, device, tile)
+        prep = _gather_prep(g, device, tile)
+        prep.reorder = reorder or ""
+        return prep
     if method in OPS_METHODS:
         return _ops_prep(g, method, dtype, device)
     lay = g.padded(tile).bsr_layout(tile)
-    blocks = torch.zeros((lay.n_blocks, tile, tile), dtype=dtype,
-                         device=device)
-    idx = [torch.as_tensor(a, device=device)
-           for a in (lay.edge_block, lay.edge_src, lay.edge_dst)]
-    blocks[idx[0], idx[1], idx[2]] = 1
     index = block_nonzero_index(lay.n_blocks, tile, lay.edge_block,
                                 lay.edge_src, lay.edge_dst)
-    return _bsr_prep(g.n, blocks, lay.src_tile, lay.dst_tile, *index,
-                     dtype=dtype, device=device)
+    return _bsr_prep(g.n, lay.n_blocks, tile, lay.src_tile, lay.dst_tile,
+                     *index, dtype=dtype, device=device, reorder=reorder)
 
 
 def _gather_prep(g: Graph, device, tile: int = 128,
@@ -339,25 +368,64 @@ def spmm_ops(m: torch.Tensor, prep: OpsPrep) -> torch.Tensor:
     return out.reshape(m.shape)
 
 
+def _bsr_edges(prep: BsrPrep):
+    """The nonzeros of a BSR operand in the index's order (blocks in
+    stream order, each block's columns ascending, a column's sources
+    ascending) as ``(src, slot, slot_dst)`` on its device: nonzero ``j`` of
+    column ``c`` of block ``b`` reads source vertex ``src_tile[b] * tile +
+    nz_src[j]`` into partial ``slot[j] = seg(b) * tile + c``, where
+    ``seg(b)`` numbers the ``RUN_SEG``-block segments of every destination
+    tile's run over the whole stream; partial ``s`` belongs to destination
+    vertex ``slot_dst[s]``. All int64."""
+    tile, dev = prep.tile, prep.device
+    tile_ptr = prep.tile_ptr.long()
+    runs = tile_ptr.diff()
+    n_seg = (runs + RUN_SEG - 1) // RUN_SEG
+    seg_base = torch.cumsum(n_seg, 0) - n_seg
+    dst_tile = prep.dst_tile.long()
+    pos = torch.arange(prep.n_blocks, device=dev) - tile_ptr[dst_tile]
+    block_seg = seg_base[dst_tile] + pos // RUN_SEG
+    counts = prep.col_ptr.diff(dim=1).reshape(-1)
+    col = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=dev), counts,
+        output_size=prep.nnz)
+    blk = col // tile
+    src = prep.src_tile.long()[blk] * tile + prep.nz_src.long()
+    slot = block_seg[blk] * tile + col % tile
+    seg_tile = torch.repeat_interleave(
+        torch.arange(prep.n_tiles, device=dev), n_seg)
+    slot_dst = (seg_tile[:, None] * tile
+                + torch.arange(tile, device=dev)).reshape(-1)
+    return src, slot, slot_dst
+
+
 def spmm_acc(m: torch.Tensor, prep: BsrPrep) -> torch.Tensor:
-    """Plain ``(R, N) @ A`` in the accumulator dtype, block by block: the
-    rows' source-tile slices are gathered per block, multiplied by the
-    block, and summed into their destination tiles."""
+    """Plain ``(R, N) @ A`` in the accumulator dtype over the nonzero
+    index, in the kernels' order: column ``c`` of block ``b`` sums the
+    source rows ``src_tile[b] * tile + nz_src[col_ptr[b, c]:col_ptr[b, c +
+    1]]`` into destination vertex ``dst_tile[b] * tile + c``, each
+    ``RUN_SEG`` blocks of a destination tile's run into a zeroed partial,
+    the partials then added in run order. The rows go through in chunks,
+    each one gather of every nonzero's source column and two
+    ``index_add_``; on the CPU these add in index order, so the sums are
+    the kernels' bit for bit (on the card ``index_add_`` adds in no fixed
+    order)."""
     rows, n = m.shape
     acc = accum_dtype(m.dtype)
-    tile, n_tiles = prep.tile, prep.n_tiles
-    blocks = prep.blocks.to(acc)
-    src = prep.src_tile.long()
-    dst = prep.dst_tile.long()
-    out = torch.zeros((rows, n_tiles, tile), dtype=acc, device=m.device)
-    step = max(1, _PLAIN_CHUNK_ELEMS // max(1, prep.n_blocks * tile))
+    n_pad = prep.n_tiles * prep.tile
+    out = torch.zeros((rows, n_pad), dtype=acc, device=m.device)
+    if rows == 0 or prep.nnz == 0:
+        return out[:, :n]
+    src, slot, slot_dst = _bsr_edges(prep)
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(prep.nnz, slot_dst.numel()))
     for r0 in range(0, rows, step):
-        chunk = torch.nn.functional.pad(
-            m[r0:r0 + step].to(acc), (0, n_tiles * tile - n))
-        gathered = chunk.view(-1, n_tiles, tile)[:, src].transpose(0, 1)
-        part = torch.bmm(gathered, blocks)               # (n_blocks, r, tile)
-        out[r0:r0 + step].index_add_(1, dst, part.transpose(0, 1))
-    return out.view(rows, n_tiles * tile)[:, :n]
+        chunk = torch.nn.functional.pad(m[r0:r0 + step].to(acc),
+                                        (0, n_pad - n))
+        part = torch.zeros((chunk.shape[0], slot_dst.numel()), dtype=acc,
+                           device=m.device)
+        part.index_add_(1, slot, chunk.index_select(1, src))
+        out[r0:r0 + step].index_add_(1, slot_dst, part)
+    return out[:, :n]
 
 
 def spmm_plain(m: torch.Tensor, prep: BsrPrep) -> torch.Tensor:
@@ -388,36 +456,88 @@ def _check_operands(name: str, prep: BsrPrep, *tables: torch.Tensor) -> int:
     return card_dtype_code(prep.dtype)
 
 
-def spmm(m: torch.Tensor, prep: BsrPrep | GatherPrep | OpsPrep
-         ) -> torch.Tensor:
+def bsr_shapes(rows: int, candidates=BSR_ROWS) -> tuple[int, ...]:
+    """The BSR SpMM's launch shapes (rows a CUDA block takes) among
+    ``candidates`` that a ``rows``-row table can launch: compiled
+    (:data:`BSR_ROWS`), within the grid's 65,535 row blocks, and no wider
+    than the narrowest shape that covers the rows, except the default."""
+    cover = min((c for c in candidates if c >= rows), default=None)
+    return tuple(c for c in candidates
+                 if c in BSR_ROWS and -(-rows // c) <= _MAX_GRID_Y
+                 and (c <= rows or c == cover or c == BSR_ROWS_DEFAULT))
+
+
+def _bsr_launch(m: torch.Tensor, prep: BsrPrep, rows_per_block: int,
+                out: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/spmm_bsr.cu`` at ``rows_per_block`` into
+    ``out``; counts nothing."""
+    rows = m.numel() // max(1, m.shape[-1])
+    fn = _build.kernel("rt_spmm_bsr", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    _build.check("spmm", fn(
+        card_dtype_code(prep.dtype), rows_per_block, m.data_ptr(), rows,
+        prep.n, prep.src_tile.data_ptr(), prep.tile_ptr.data_ptr(),
+        prep.col_ptr.data_ptr(), prep.nz_src.data_ptr(), prep.n_tiles,
+        out.data_ptr(), stream))
+    return out
+
+
+def _bsr_sweep(m: torch.Tensor, prep: BsrPrep, out: torch.Tensor):
+    """The autotuner's runner: ``c -> None``, one launch at shape ``c``
+    into the wrapper's own ``out`` (its launch then overwrites it), counted
+    in ``spmm.sweep_launches``."""
+
+    def run(c):
+        _bsr_launch(m, prep, c, out)
+        spmm.sweep_launches += 1
+    return run
+
+
+def spmm(m: torch.Tensor, prep: BsrPrep | GatherPrep | OpsPrep, *,
+         c_block: int | None = None, autotune: bool = False) -> torch.Tensor:
     """``Y = M @ A`` for a ``(..., C, N)`` table: the plain version on a
     CPU tensor, one launch of the prep's CUDA kernel on a CUDA tensor;
-    an :class:`OpsPrep` runs torch's ops on either."""
+    an :class:`OpsPrep` runs torch's ops on either.
+
+    ``c_block`` is the kernel's launch shape, the reference's keyword: on
+    the BSR kernel the table rows a CUDA block takes (:data:`BSR_ROWS`,
+    default 32), on the gather kernel the destinations a block holds
+    (:data:`GATHER_DESTS`, default 128). ``autotune=True`` sweeps the
+    launchable shapes once per key (:func:`~repro_torch.kernels.autotune.
+    spmm_c_block`). Both are ignored on a CPU tensor and by an
+    :class:`OpsPrep`."""
     if isinstance(prep, OpsPrep):
         return spmm_ops(m, prep)
     if isinstance(prep, GatherPrep):
-        return spmm_gather(m, prep)
+        return spmm_gather(m, prep, c_block=c_block, autotune=autotune)
     if m.device.type == "cpu":
         return spmm_plain(m, prep)
-    code = _check_operands("spmm", prep, m)
+    _check_operands("spmm", prep, m)
     rows = m.numel() // max(1, m.shape[-1])
     out = torch.empty_like(m)
     if rows == 0 or prep.n == 0:
         return out.zero_()
-    fn = _build.kernel("rt_spmm_bsr", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(m.device).cuda_stream
-    _build.check("spmm", fn(
-        code, m.data_ptr(), rows, prep.n, prep.src_tile.data_ptr(),
-        prep.tile_ptr.data_ptr(), prep.col_ptr.data_ptr(),
-        prep.nz_src.data_ptr(), prep.n_tiles, out.data_ptr(), stream))
+    if c_block is None:
+        c_block = BSR_ROWS_DEFAULT
+        if autotune:
+            c_block = _autotune.spmm_c_block(
+                m, _bsr_sweep(m, prep, out), kind="bsr",
+                operand=(prep.n_blocks, prep.nnz), reorder=prep.reorder,
+                candidates=bsr_shapes(rows, _autotune.SPMM_C_BLOCK_CANDIDATES))
+    elif c_block not in bsr_shapes(rows, (c_block,)):
+        raise ValueError(f"spmm: the BSR kernel cannot take {rows} rows "
+                         f"at {c_block} a block; it compiles {BSR_ROWS}")
+    _bsr_launch(m, prep, c_block, out)
     spmm.launches += 1
     return out
 
 
 spmm.launches = 0
+spmm.sweep_launches = 0
 
 
 def spmm_gather_plain(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
@@ -448,10 +568,62 @@ def spmm_gather_plain(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
     return out.to(m.dtype).reshape(m.shape)
 
 
-def spmm_gather(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
+def gather_shapes(prep: GatherPrep, candidates=GATHER_DESTS
+                  ) -> tuple[int, ...]:
+    """The gather SpMM's launch shapes (destinations a block holds) among
+    ``candidates`` that ``prep`` can launch: compiled
+    (:data:`GATHER_DESTS`) and within the grid's ``2^31 - 1`` blocks."""
+    seg_blocks = -(-prep.n_segments // 32)
+    return tuple(d for d in candidates if d in GATHER_DESTS
+                 and seg_blocks + -(-prep.n // d) <= _MAX_GRID_X)
+
+
+def _gather_launch(m: torch.Tensor, prep: GatherPrep, dests: int,
+                   out: torch.Tensor) -> torch.Tensor:
+    """One call of ``csrc/spmm_gather.cu`` at ``dests`` destinations a
+    block into ``out``; counts nothing."""
+    rows = m.numel() // max(1, m.shape[-1])
+    # the kernel's scratch (scratch_bytes): one vertex-major row chunk and
+    # the hubs' partial sums, from the caching allocator
+    chunk = _GATHER_LINE // m.element_size()
+    scratch = torch.empty((prep.n, chunk), dtype=m.dtype, device=m.device)
+    partials = torch.empty((prep.n_segments, chunk),
+                           dtype=torch.float32, device=m.device)
+    fn = _build.kernel("rt_spmm_gather", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    _build.check("spmm_gather", fn(
+        card_dtype_code(m.dtype), dests, m.data_ptr(), rows, prep.n,
+        prep.src.data_ptr(), prep.row_ptr.data_ptr(), prep.hub_degree,
+        prep.seg.data_ptr(), prep.n_segments, prep.hub_vertex.data_ptr(),
+        prep.hub_seg_ptr.data_ptr(), prep.n_hubs, scratch.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), stream))
+    return out
+
+
+def _gather_sweep(m: torch.Tensor, prep: GatherPrep, out: torch.Tensor):
+    """The autotuner's runner: ``d -> None``, one call at shape ``d`` into
+    the wrapper's own ``out`` (its call then overwrites it), counted in
+    ``spmm_gather.sweep_launches``."""
+
+    def run(d):
+        _gather_launch(m, prep, d, out)
+        spmm_gather.sweep_launches += 1
+    return run
+
+
+def spmm_gather(m: torch.Tensor, prep: GatherPrep, *,
+                c_block: int | None = None,
+                autotune: bool = False) -> torch.Tensor:
     """``Y = M @ A`` over the edge stream for a ``(..., C, N)`` table: the
     plain version on a CPU tensor, one call of ``csrc/spmm_gather.cu`` on
-    a CUDA tensor (its kernels once per chunk of rows)."""
+    a CUDA tensor (its kernels once per chunk of rows), at ``c_block``
+    destinations a gather block (default 128), or the autotuner's choice
+    with ``autotune=True``."""
     if m.device.type == "cpu":
         return spmm_gather_plain(m, prep)
     if m.device != prep.device:
@@ -462,34 +634,30 @@ def spmm_gather(m: torch.Tensor, prep: GatherPrep) -> torch.Tensor:
     if m.shape[-1] != prep.n:
         raise ValueError(f"spmm_gather: table has {m.shape[-1]} vertices, "
                          f"the graph {prep.n}")
-    code = card_dtype_code(m.dtype)
+    card_dtype_code(m.dtype)
     rows = m.numel() // max(1, m.shape[-1])
     out = torch.empty_like(m)
     if rows == 0 or prep.n == 0:
         return out
-    # the kernel's scratch (scratch_bytes): one vertex-major row chunk and
-    # the hubs' partial sums, from the caching allocator
-    chunk = _GATHER_LINE // m.element_size()
-    scratch = torch.empty((prep.n, chunk), dtype=m.dtype, device=m.device)
-    partials = torch.empty((prep.n_segments, chunk),
-                           dtype=torch.float32, device=m.device)
-    fn = _build.kernel("rt_spmm_gather", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(m.device).cuda_stream
-    _build.check("spmm_gather", fn(
-        code, m.data_ptr(), rows, prep.n, prep.src.data_ptr(),
-        prep.row_ptr.data_ptr(), prep.hub_degree, prep.seg.data_ptr(),
-        prep.n_segments, prep.hub_vertex.data_ptr(),
-        prep.hub_seg_ptr.data_ptr(), prep.n_hubs, scratch.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), stream))
+    if c_block is None:
+        c_block = GATHER_DESTS_DEFAULT
+        if autotune:
+            c_block = _autotune.spmm_c_block(
+                m, _gather_sweep(m, prep, out), kind="gather",
+                operand=(int(prep.src.numel()), prep.n_segments),
+                reorder=prep.reorder,
+                candidates=gather_shapes(
+                    prep, _autotune.GATHER_BLOCK_CANDIDATES))
+    elif c_block not in gather_shapes(prep, (c_block,)):
+        raise ValueError(f"spmm_gather: cannot launch {c_block} "
+                         f"destinations a block; it compiles {GATHER_DESTS}")
+    _gather_launch(m, prep, c_block, out)
     spmm_gather.launches += 1
     return out
 
 
 spmm_gather.launches = 0
+spmm_gather.sweep_launches = 0
 
 
 def spmm_row_chunk(m: torch.Tensor, q: int, rows: int) -> torch.Tensor:

@@ -15,11 +15,11 @@ level 0     ``as_built`` — the requested build options, untouched (the
             port's engine fuses SpMM→eMA by default: the fused CUDA
             kernel and its shared-passive group form)
 level 1     ``unfused`` — ``fuse_spmm_ema=False``: every node runs the
-            SpMM kernel, then the eMA kernel
+            SpMM kernel, then the eMA kernel; and no ``autotune_blocks``
+            (each kernel at its default launch shape)
 level 2     ``xla`` — also ``spmm_method="gather"`` (the edge-stream
-            gather CUDA kernel: no BSR operand and none of its dense
-            blocks on the card), and f32 storage where the build asked
-            for bf16 or fp16
+            gather CUDA kernel instead of the BSR nonzero index), and f32
+            storage where the build asked for bf16 or fp16
 =========  =============================================================
 
 Level 1 *sets* ``fuse_spmm_ema=False`` where the JAX package pops the
@@ -138,6 +138,7 @@ class DegradationState:
         kw = dict(engine_kw)
         if self.level >= 1:
             kw["fuse_spmm_ema"] = False
+            kw.pop("autotune_blocks", None)
         if self.level >= 2:
             kw["spmm_method"] = "gather"
             dt = kw.get("dtype")

@@ -591,3 +591,115 @@ def test_reordered_engine_on_card_matches_cpu(card, name, method):
     t_cpu, r_cpu = on_cpu.count_colorful_batch(cols)
     _close(t_card, t_cpu, torch.float32)
     _close(r_card, r_cpu, torch.float32)
+
+
+# --------------------------------------------- the autotuner's launch shapes
+TUNE_GRAPHS = {
+    "odd": lambda: erdos_renyi(301, 5.0, seed=2),     # odd n
+    "hub": lambda: star(3001),                         # hub segments, odd n
+    "small": GRAPHS["small"],                          # n < one tile
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gname", sorted(TUNE_GRAPHS))
+@pytest.mark.parametrize("rows", [1, 31, 33])
+@pytest.mark.parametrize("method", ["bsr", "gather"])
+def test_every_spmm_launch_shape_matches_plain(card, method, rows, gname,
+                                              dtype):
+    from repro_torch.kernels import autotune
+    g = TUNE_GRAPHS[gname]()
+    prep = spmm_ops.prepare(g, method, dtype=dtype, device=card)
+    m = _rand((rows, g.n), dtype, card, rows)
+    if method == "bsr":
+        counter, plain, shapes = (spmm_ops.spmm, spmm_ops.spmm_plain,
+                                  spmm_ops.BSR_ROWS)
+    else:
+        counter, plain, shapes = (spmm_ops.spmm_gather,
+                                  spmm_ops.spmm_gather_plain,
+                                  spmm_ops.GATHER_DESTS)
+    want = plain(m, prep)
+    default = spmm_ops.spmm(m, prep)
+    for c in shapes:
+        got = spmm_ops.spmm(m, prep, c_block=c)
+        assert torch.equal(got, default), c      # the order of every sum
+        _close(got, want, dtype)
+    # a tuned call: one real launch, its sweep counted apart
+    autotune.clear_cache()
+    before = (counter.launches, counter.sweep_launches)
+    tuned = spmm_ops.spmm(m, prep, autotune=True)
+    assert counter.launches == before[0] + 1
+    assert counter.sweep_launches > before[1]
+    assert torch.equal(tuned, default)
+    again = (counter.launches, counter.sweep_launches)
+    spmm_ops.spmm(m, prep, autotune=True)        # a cache hit: no sweep
+    assert (counter.launches, counter.sweep_launches) == (again[0] + 1,
+                                                          again[1])
+    with pytest.raises(ValueError):
+        spmm_ops.spmm(m, prep, c_block=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 33])
+def test_bsr_spmm_sums_real_values_in_the_plain_order(card, rows, dtype):
+    """Real-valued tables, whose sums change with their order, on a star
+    whose hub tile's run is longer than one RUN_SEG segment: every launch
+    shape equals the plain version bit for bit, so the kernel's segment
+    length (rt::RUN_SEG) and the plain version's (spmm_ops.RUN_SEG) agree.
+    The plain version runs on the CPU, where index_add_ adds in index
+    order."""
+    g = star(3001)
+    prep = spmm_ops.prepare(g, dtype=dtype, device=card)
+    prep_cpu = spmm_ops.prepare(g, dtype=dtype, device="cpu")
+    assert int(prep_cpu.tile_ptr.diff().max()) > spmm_ops.RUN_SEG
+    gen = torch.Generator().manual_seed(rows)
+    m = torch.randn((rows, g.n), generator=gen).to(dtype)
+    want = spmm_ops.spmm_plain(m, prep_cpu)
+    for c in spmm_ops.bsr_shapes(rows):
+        got = spmm_ops.spmm(m.to(card), prep, c_block=c).cpu()
+        assert torch.equal(got, want), c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,t,ta", [(5, 3, 1), (12, 7, 6), (4, 3, 1),
+                                    (10, 10, 5)])
+@pytest.mark.parametrize("b", [1, 3])
+def test_every_ema_launch_shape_matches_plain(card, dtype, k, t, ta, b):
+    from repro_torch.kernels import autotune
+    n = 301                                       # odd: a ragged slice
+    ia, ip = _splits(k, t, ta, card)
+    m_a = _rand((b, comb(k, ta), n), dtype, card, 1)
+    y_p = _rand((b, comb(k, t - ta), n), dtype, card, 2)
+    want = ema_ops.ema_plain(m_a, y_p, ia, ip)
+    default = ema_ops.ema(m_a, y_p, ia, ip)
+    shapes = ema_ops.ema_shapes(m_a, y_p, ia)
+    assert len(shapes) >= 2
+    for s_block, n_block in shapes:
+        got = ema_ops.ema(m_a, y_p, ia, ip, s_block=s_block, n_block=n_block)
+        assert torch.equal(got, default), (s_block, n_block)
+        _close(got, want, dtype)
+    other = [c for c in autotune.EMA_BLOCK_CANDIDATES if c not in shapes]
+    with pytest.raises(ValueError, match="path cannot launch"):
+        ema_ops.ema(m_a, y_p, ia, ip, s_block=other[0][0],
+                    n_block=other[0][1])
+    autotune.clear_cache()
+    before = (ema_ops.ema.launches, ema_ops.ema.sweep_launches)
+    tuned = ema_ops.ema(m_a, y_p, ia, ip, autotune=True)
+    assert ema_ops.ema.launches == before[0] + 1
+    assert ema_ops.ema.sweep_launches == before[1] + 4 * len(shapes)
+    assert torch.equal(tuned, default)
+
+
+@pytest.mark.parametrize("method", ["bsr", "gather"])
+def test_autotuned_engine_on_card_matches_untuned(card, method):
+    from repro_torch.kernels import autotune
+    autotune.clear_cache()
+    g = grid_2d(40, 33)
+    cols = batch_colorings(2, range(3), g.n, 7, device="cpu")
+    kw = dict(plan="optimized", spmm_method=method, device=card)
+    t_plain, r_plain = CountingEngine(g, "u7", **kw).count_colorful_batch(
+        cols)
+    t_tuned, r_tuned = CountingEngine(
+        g, "u7", autotune_blocks=True, **kw).count_colorful_batch(cols)
+    assert torch.equal(t_plain, t_tuned) and torch.equal(r_plain, r_tuned)
+    assert autotune.cache_info()

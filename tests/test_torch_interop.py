@@ -23,6 +23,18 @@ from repro_torch.graph import generators  # noqa: E402
 from repro_torch.graph.structure import Graph  # noqa: E402
 from repro_torch.kernels.spmm import ops as spmm_ops  # noqa: E402
 
+def _dense_from_index(prep):
+    """The dense (n_blocks, tile, tile) f32 blocks a BSR operand's nonzero
+    index stands for, rebuilt on the host."""
+    tile = prep.tile
+    col_ptr, nz_src = prep.col_ptr.numpy(), prep.nz_src.numpy()
+    counts = np.diff(col_ptr, axis=1).ravel()
+    col = np.repeat(np.arange(prep.n_blocks * tile), counts)
+    dense = np.zeros((prep.n_blocks, tile, tile), np.float32)
+    dense[col // tile, nz_src, col % tile] = 1.0
+    return dense
+
+
 GRAPHS = {
     "grid": (lambda: generators.grid_2d(20, 17),
              lambda: ref_gen.grid_2d(20, 17)),
@@ -45,9 +57,11 @@ def test_bsr_is_byte_identical(gname):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes(), name
     assert got.n_tiles == want.n_tiles
-    # the device operand densifies the same blocks where it lives
+    # the device operand is the same blocks' nonzero index, and holds no
+    # dense stream
     prep = spmm_ops.prepare(g, device="cpu")
-    assert prep.blocks.numpy().tobytes() == want.blocks.tobytes()
+    assert not hasattr(prep, "blocks") and prep.n_blocks == want.n_blocks
+    assert _dense_from_index(prep).tobytes() == want.blocks.tobytes()
     np.testing.assert_array_equal(prep.dst_tile.numpy(), want.dst_tile)
     ptr = prep.tile_ptr.numpy()
     assert ptr[0] == 0 and ptr[-1] == prep.n_blocks
@@ -68,7 +82,8 @@ def test_split_tables_and_prep_match_reference_engine(tname):
             assert got.numpy().astype(want.dtype).tobytes() == want.tobytes()
     for name in ("blocks", "src_tile", "dst_tile"):
         want = np.asarray(ref._spmm_prep.arrays[name])
-        got = getattr(eng._spmm_prep, name).numpy()
+        got = (_dense_from_index(eng._spmm_prep) if name == "blocks"
+               else getattr(eng._spmm_prep, name).numpy())
         assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
 
 

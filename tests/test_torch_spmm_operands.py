@@ -7,8 +7,11 @@ checked against what they stand for: the nonzero index against the dense
 blocks, the hub segments against the edge stream, and a numpy walk of each
 operand in the kernel's own order (row chunks, block runs and column lists;
 transposed chunks, runs, segments and their partials) against the plain
-PyTorch version. Inputs are integer-valued, so f32 sums are exact.
+PyTorch version. Inputs are integer-valued, so f32 sums are exact, but
+for one case that holds the BSR walk's order of sums on long runs.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ import torch
 from repro_torch.graph.generators import erdos_renyi, grid_2d, rmat, star
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.spmm import ops as spmm_ops
-from repro_torch.kernels.spmm.ops import HUB_DEGREE
+from repro_torch.kernels.spmm.ops import HUB_DEGREE, RUN_SEG
 
 BSR_GRAPHS = {
     "er_ragged": lambda: erdos_renyi(300, 6.0, seed=3),
@@ -48,8 +51,10 @@ def _bsr(gname, builder):
     g = BSR_GRAPHS[gname]()
     prep = spmm_ops.prepare(g, device="cpu")
     if builder == "from_arrays":
-        prep = spmm_ops.from_arrays(g.n, prep.blocks, prep.src_tile,
-                                    prep.dst_tile, device="cpu")
+        # the host block stream (the reference carries the same arrays)
+        host = g.padded(128).bsr()
+        prep = spmm_ops.from_arrays(g.n, host.blocks, host.src_tile,
+                                    host.dst_tile, device="cpu")
     return g, prep
 
 
@@ -70,13 +75,15 @@ def test_bsr_nonzero_index_reproduces_the_blocks(gname, builder):
             rows = nz_src[col_ptr[b, c]:col_ptr[b, c + 1]]
             assert (np.diff(rows.astype(np.int64)) > 0).all()  # ascending
             dense[b, rows, c] = 1.0
-    np.testing.assert_array_equal(dense, prep.blocks.numpy())
+    np.testing.assert_array_equal(dense, g.padded(128).bsr().blocks)
     assert prep.index_bytes == 4 * col_ptr.size + g.m
 
 
 def _sparse_walk(m, prep):
     """The BSR SpMM kernel's walk in numpy: per row chunk and destination
-    tile, the run's blocks in order, each column's listed sources."""
+    tile, the run's blocks in order, each column's listed sources, each
+    RUN_SEG blocks into a zeroed partial added to the total in run
+    order."""
     rows, n = m.shape
     tile = prep.tile
     src_tile, tile_ptr = prep.src_tile.numpy(), prep.tile_ptr.numpy()
@@ -87,11 +94,16 @@ def _sparse_walk(m, prep):
         chunk = padded[r0:r0 + BSR_CHUNK]
         for t in range(prep.n_tiles):
             acc = np.zeros((len(chunk), tile), np.float32)
-            for b in range(tile_ptr[t], tile_ptr[t + 1]):
+            part = np.zeros_like(acc)
+            lo, hi = tile_ptr[t], tile_ptr[t + 1]
+            for b in range(lo, hi):
                 staged = chunk[:, src_tile[b] * tile:(src_tile[b] + 1) * tile]
                 for c in range(tile):
                     for i in nz_src[col_ptr[b, c]:col_ptr[b, c + 1]]:
-                        acc[:, c] += staged[:, i]
+                        part[:, c] += staged[:, i]
+                if (b - lo) % RUN_SEG == RUN_SEG - 1 or b + 1 == hi:
+                    acc += part
+                    part[:] = 0
             out[r0:r0 + BSR_CHUNK, t * tile:(t + 1) * tile] = acc
     return out[:, :n]
 
@@ -101,6 +113,90 @@ def _sparse_walk(m, prep):
 def test_bsr_sparse_walk_matches_the_plain_spmm(gname, rows):
     g, prep = _bsr(gname, "prepare")
     m = _table(rows, g.n, rows)
+    want = spmm_ops.spmm_plain(torch.as_tensor(m), prep).numpy()
+    np.testing.assert_array_equal(_sparse_walk(m, prep), want)
+
+
+def _tiled_graph(n, seed, empty_tile=None):
+    """A random graph on ``n`` vertices whose destination tile
+    ``empty_tile`` (if any) has no edges (its filler block only)."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, n, size=(6 * n, 2))
+    if empty_tile is not None:
+        t0 = 128 * empty_tile
+        e = e[((e < t0) | (e >= t0 + 128)).all(axis=1)]
+    return Graph.from_edges(n, e[e[:, 0] != e[:, 1]])
+
+
+def _block_product(m, g):
+    """The plain SpMM as it was before the dense blocks left the operand:
+    each host block multiplied densely into its destination tile."""
+    bs = g.padded(128).bsr()
+    rows = m.shape[0]
+    pad = np.pad(m, ((0, 0), (0, bs.n_tiles * 128 - g.n)))
+    pad = pad.reshape(rows, bs.n_tiles, 128)
+    out = np.zeros((rows, bs.n_tiles, 128), np.float32)
+    for b in range(bs.n_blocks):
+        out[:, bs.dst_tile[b]] += pad[:, bs.src_tile[b]] @ bs.blocks[b]
+    return out.reshape(rows, -1)[:, :g.n]
+
+
+# n = 4 tiles + a one-vertex tail, an exact 128-vertex last tile, a graph
+# inside one tile; destination tile 1 empty in two of them
+PLAIN_GRAPHS = {
+    "tail1_empty1": (4 * 128 + 1, 1),
+    "tail128_empty1": (3 * 128, 1),
+    "tail128": (5 * 128, None),
+    "one_tile": (100, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 33])
+@pytest.mark.parametrize("case", sorted(PLAIN_GRAPHS))
+def test_plain_spmm_over_the_index_equals_the_block_product(case, rows,
+                                                            dtype):
+    n, empty = PLAIN_GRAPHS[case]
+    g = _tiled_graph(n, seed=rows + n, empty_tile=empty)
+    if empty is not None:
+        dst_tiles = g.padded(128).bsr().dst_tile
+        assert (dst_tiles == empty).sum() == 1     # its filler block alone
+        src, dst = g.edges_by_dst
+        assert not ((dst // 128) == empty).any()
+    prep = spmm_ops.prepare(g, dtype=dtype, device="cpu")
+    m = _table(rows, g.n, seed=n)
+    got = spmm_ops.spmm_plain(torch.as_tensor(m).to(dtype), prep)
+    assert got.dtype == dtype
+    want = _block_product(m, g)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  torch.as_tensor(want).to(dtype).float()
+                                  .numpy())
+
+
+@pytest.mark.parametrize("gname", sorted(BSR_GRAPHS))
+def test_bsr_prep_holds_no_dense_stream(gname):
+    g, prep = _bsr(gname, "prepare")
+    tensors = {f.name: getattr(prep, f.name)
+               for f in dataclasses.fields(prep)
+               if isinstance(getattr(prep, f.name), torch.Tensor)}
+    assert set(tensors) == {"src_tile", "dst_tile", "tile_ptr", "col_ptr",
+                            "nz_src"}
+    assert not hasattr(prep, "blocks")
+    assert prep.nbytes == sum(t.numel() * t.element_size()
+                              for t in tensors.values())
+    # the index is 4 bytes a column and 1 an edge, not 4 bytes an entry
+    assert prep.nbytes < prep.n_blocks * 128 * 128 * 4 // 10
+    assert (prep.n_blocks, prep.device, prep.dtype) == (
+        g.padded(128).bsr().n_blocks, torch.device("cpu"), torch.float32)
+
+
+def test_bsr_walk_sums_long_runs_in_segments():
+    # runs of 40 blocks (3 segments) and real-valued rows: the plain SpMM
+    # adds in the kernels' order, bit for bit
+    g = erdos_renyi(40 * 128, 40.0, seed=1)
+    prep = spmm_ops.prepare(g, device="cpu")
+    assert int(prep.tile_ptr.diff().max()) > 2 * RUN_SEG
+    m = np.random.default_rng(0).standard_normal((3, g.n)).astype(np.float32)
     want = spmm_ops.spmm_plain(torch.as_tensor(m), prep).numpy()
     np.testing.assert_array_equal(_sparse_walk(m, prep), want)
 
