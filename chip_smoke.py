@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives twelve paths of
+``src/repro_torch/csrc``) and nothing of JAX. It drives thirteen paths of
 the port, each with every kernel's launch counter set to 0 just before it
 and read just after:
 
@@ -48,6 +48,15 @@ and read just after:
   fusion) over 8 at 32 GiB, each in whole batches timed after one untimed
   batch; the row-major engines run torch's ops (no hand-written kernel
   launches), and iterations 0-1 agree across the three;
+* **(D) distributed PGBSC:** ``torch.distributed`` on NCCL at world size
+  1 (a ``FileStore`` under ``TMPDIR``), mesh ``(1, 1)`` as ``("data",
+  "model")``, ``DistributedPgbsc(grid_2d(1024, 1024), "u12",
+  plan="dedup").count_iterations([0, 1, 2, 3], seed=0)``: the ring's
+  gather SpMM and the eMA in both its forms, every sum equal bit for bit
+  to the single-device gather engine's on the same ``coloring_for_seed``
+  coloring; at world 1 the only collectives are the float64 totals'
+  ``all_reduce``s (the ring has one step, nothing is gathered or
+  scattered); the process group is destroyed before (S);
 * **(S) the counting service:** the mesh written with
   ``graph/io.save_edge_list`` and loaded with ``load_cached`` (parsed, then
   from its ``.npz``); ``launch/serve.main`` in batch mode on it (u12 under
@@ -110,12 +119,18 @@ In order it prints:
    PFASCIA's among them) under
    ``torch.profiler``, device time and launches by kernel, the device's
    idle share, the host's CUDA calls and the allocator's retries;
-7. (S)'s ``[service]`` lines: the graph's host load times, serve's own
+7. (D)'s ``[dist]`` lines: seconds per iteration, the peak beside the
+   memory model's tables and the ring's operand, the sums; then the
+   gather SpMM and eMA at the ring's shapes against their plain versions
+   (``[kernel]`` lines, also in the JSON line's ``at_paths``), with the
+   scatter form's remap also at ``d_model`` 2 (shard 0: its active half,
+   the passive and its zero row);
+8. (S)'s ``[service]`` lines: the graph's host load times, serve's own
    output (per-request breakdowns, span summary), the u12 group's seconds
    per coloring beside ``api.count``'s, the cold engine build, peak and
    released device memory, each HTTP request's time from POST to result,
    the prewarm, a cached answer's round trip, and each step's launches;
-8. the script's total seconds, one JSON line with every kernel's numbers,
+9. the script's total seconds, one JSON line with every kernel's numbers,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line; without a card
@@ -2231,6 +2246,184 @@ def phase_service(g, res_u12, est_u13: float) -> dict:
     return total
 
 
+DIST_ITERS = [0, 1, 2, 3]      # (D)'s iterations, seed 0
+
+
+def _distributed_kernels(dpg, g) -> dict:
+    """(D)'s kernels at the ring's shapes, f32, each held against its
+    plain version (``_measure``): the gather SpMM on the ring's piece
+    ``(my shard, block 0)`` at the leaf's and the widest passive table's
+    rows, the eMA's gather form at its costliest node, its scatter form at
+    every scatter node, and the widest scatter node remapped as model
+    shard 0 of 2 would run it (its half of the active child, the passive
+    with the zero row that the terms of shard 1 read) — a form world 1
+    does not run. Returns ``{label: row}`` with each row's shape and
+    launches a coloring."""
+    import torch
+
+    from repro_torch.core.distributed import local_splits, shard_plan
+    from repro_torch.kernels.ema import ops as ema_ops
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    dev, n = dpg.device, dpg.block
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    prep = dpg.ring_preps[0]
+    e = int(prep.src.numel())
+    csr = _csr(g, dev) if dpg.d_data == 1 else None
+
+    def rand(rows):
+        return torch.empty((rows, n), device=dev).random_(0, 4,
+                                                          generator=gen)
+
+    meta = dpg.meta
+    # each table's rows on this rank
+    rows_of = {i: m.width_pad // dpg.d_model for i, m in enumerate(meta)}
+    passives = sorted({m.passive for m in meta if m.collective})
+    out = {}
+    for p in sorted({passives[0], max(passives, key=rows_of.get)}):
+        # the leaf's and the widest passive table's SpMM
+        m = rand(rows_of[p])
+        m_t = m.t().contiguous() if csr is not None else None
+        case = dict(
+            name="spmm_gather", shape=f"m=({rows_of[p]},{n}) E={e} (ring)",
+            kernel=lambda: spmm_ops.spmm_gather(m, prep),
+            plain=lambda: spmm_ops.spmm_gather_plain(m, prep),
+            bytes=2 * m.numel() * 4 + 4 * (n + 1 + e), flops=e * m.shape[0],
+            library=(lambda: torch.sparse.mm(csr, m_t))
+            if csr is not None else None,
+            library_t=_library_transposed(csr, m) if csr is not None
+            else None)
+        row = _measure(case, F32_RTOL, 3)
+        row.update(shape=case["shape"], launches_per_batch=dpg.d_data)
+        out[f"spmm_gather passive {p}"] = row
+        del case, m, m_t
+        torch.cuda.empty_cache()
+    # the gather form's widest node (output rows x terms), every scatter
+    # node, and the widest scatter node as model shard 0 of 2
+    gathers = [i for i, m in enumerate(meta) if m.collective == "gather"]
+    scatters = [i for i, m in enumerate(meta) if m.collective == "scatter"]
+    meta2 = shard_plan(dpg.plan, dpg.k, 2)
+    wide = max((i for i in scatters if meta2[i].collective == "scatter"),
+               key=lambda i: meta[i].ia.size)
+    cases = [(max(gathers, key=lambda i: meta[i].ia.size), 1)] + [
+        (i, 1) for i in scatters] + [(wide, 2)]
+    for i, d_model in cases:
+        m = (meta if d_model == 1 else meta2)[i]
+        if d_model == 1:
+            ia, ip = dpg.splits[i]
+        else:
+            ia, ip = (torch.as_tensor(t, device=dev) for t in local_splits(
+                meta2, i, 2, 0))
+        c_p = meta[m.passive].width_pad
+        if m.collective == "gather":
+            m_a = rand(meta[m.active].width_pad)
+        else:
+            m_a = rand(meta2[m.active].width_pad // d_model)
+        y_p = rand(c_p)
+        if d_model == 2:
+            y_p = torch.cat([y_p, torch.zeros((1, n), device=dev)])
+        c_a, s, l = m_a.shape[0], *ia.shape
+        form = m.collective + (" remapped as shard 0 of 2"
+                               if d_model == 2 else "")
+        case = dict(
+            name="ema", shape=f"m_a=({c_a},{n}) y_p=({y_p.shape[0]},{n}) "
+                              f"S={s} L={l} node {i} {form}",
+            kernel=lambda: ema_ops.ema(m_a, y_p, ia, ip),
+            plain=lambda: ema_ops.ema_plain(m_a, y_p, ia, ip),
+            **_step_cost(1, n, c_a, y_p.shape[0], s, l, 4,
+                         index_bytes=8 * ia.numel()),
+            library=None)
+        row = _measure(case, F32_RTOL, 10)
+        row.update(shape=case["shape"], launches_per_batch=int(d_model == 1))
+        out[f"ema node {i}" + (" shard 0 of 2" if d_model == 2 else "")] = row
+        del case, m_a, y_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_distributed(g) -> tuple[dict, dict]:
+    """(D) distributed PGBSC under NCCL at world size 1: one rank, mesh
+    ``(1, 1)`` as ``("data", "model")``, ``init_process_group`` on a
+    ``FileStore`` under ``TMPDIR``. ``DistributedPgbsc(g, "u12",
+    plan="dedup").count_iterations(DIST_ITERS, seed=0)`` after one untimed
+    iteration — the ring's gather SpMM and both eMA forms — with its
+    seconds per iteration and peak beside the memory model; each sum held bit for bit against the
+    single-device gather engine on the same ``coloring_for_seed``
+    coloring; then the kernels at the ring's shapes. The process group is
+    destroyed before it returns. Returns (launches, kernel rows)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (DistributedPgbsc,
+                                              coloring_for_seed)
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.core.executor import simulate_peak_rows
+    from repro_torch.launch.mesh import make_mesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        dpg = DistributedPgbsc(g, "u12", make_mesh((1, 1), ("data", "model")),
+                               plan="dedup")
+        build_s = time.perf_counter() - t0
+        # untimed: NCCL sets its communicator up at the first collective
+        dpg.count_iterations(DIST_ITERS[:1], seed=0)
+        _sync()
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, per = dpg.count_iterations(DIST_ITERS, seed=0)
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        model = simulate_peak_rows(dpg.plan, dpg.k, dpg.exec_schedule) \
+            * dpg.n_pad * 4 // (dpg.d_data * dpg.d_model)
+        operand = sum(p.nbytes for p in dpg.ring_preps)
+        transient = dpg.transient_bytes()
+        print(f"[dist] u12 dedup on the mesh (n={g.n}, m={g.m}), mesh (1, 1) "
+              f"(data, model) under nccl: n_pad={dpg.n_pad} block="
+              f"{dpg.block} forms={dpg.collective_choice()} build "
+              f"{build_s:.3f} s; {len(DIST_ITERS)} iterations in {wall:.3f} "
+              f"s, s_per_iteration={wall / len(DIST_ITERS):.4f} "
+              f"launches={launches} max_memory_allocated={peak} "
+              f"({peak / GIB:.2f} GiB) against the model's tables {model} B "
+              f"({model / GIB:.2f} GiB) + the transient (gather scratch) {transient} "
+              f"B + ring operand {operand} B (peak - those "
+              f"{peak - model - transient - operand:+d} B) sums={per}; "
+              f"collectives at world 1: two float64 all_reduces a coloring "
+              f"(no ring transfer, gather or reduce-scatter)", flush=True)
+        if min(launches["spmm_gather"], launches["ema"]) == 0:
+            raise AssertionError(f"(D) did not launch its kernels: "
+                                 f"{launches}")
+        eng = CountingEngine(g, "u12", plan="dedup", spmm_method="gather",
+                             fuse_spmm_ema=False, device="cuda")
+        for it in DIST_ITERS:
+            colors = coloring_for_seed(it, dpg.n_pad, g.n, 12,
+                                       device="cuda")[:g.n]
+            want = float(eng.count_colorful(colors)[0])
+            if per[it] != want:
+                raise AssertionError(f"(D) iteration {it}: {per[it]!r} "
+                                     f"against the gather engine's {want!r}")
+        print(f"[dist] every sum equals the single-device gather engine's "
+              f"on the same coloring, bit for bit", flush=True)
+        eng.release()
+        del eng
+        torch.cuda.empty_cache()
+        rows = _distributed_kernels(dpg, g)
+        del dpg
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, rows
+
+
 def _device_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches after one warm
     call, by CUDA events, with the card held busy (``torch.cuda._sleep``)
@@ -2648,6 +2841,10 @@ def main() -> int:
     phase_profile(g, g_rmat)
     _sync()
     del g_rmat
+    by_path["distributed"], dist_rows = phase_distributed(g)
+    for label, r in dist_rows.items():
+        sweeps[f"distributed {label}"] = {label.split()[0]: r}
+    _sync()
     by_path["service"] = phase_service(g, res_u12, est_u13)
     _sync()
     # each kernel's numbers at the f32 shapes of the path it was added

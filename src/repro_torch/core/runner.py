@@ -18,8 +18,7 @@ fault-tolerance model simple and strong:
   or the JAX package's runner (the ledger's bytes are the reference's).
 
 A copy of the JAX package's ``core/runner.py`` with the same ledger,
-metric and span names; the distributed counter comes with distributed
-counting (``ROADMAP.md``). Resume-equals-straight needs each iteration's
+metric and span names. Resume-equals-straight needs each iteration's
 colorful sum to be bitwise independent of the batch it ran in, which the
 port's engine keeps on the card (``CountingEngine``'s totals).
 """
@@ -38,7 +37,8 @@ from repro_torch.obs import tracing as _tracing
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience import recovery as _recovery
 
-__all__ = ["EstimatorRunner", "RunnerResult", "engine_counter"]
+__all__ = ["EstimatorRunner", "RunnerResult", "engine_counter",
+           "distributed_counter"]
 
 
 @dataclasses.dataclass
@@ -202,3 +202,18 @@ def engine_counter(engine, seed: int = 0, batch_size: int | None = None,
 
     return counter
 
+
+def distributed_counter(dist, seed: int = 0):
+    """Adapt a :class:`~repro_torch.core.distributed.DistributedPgbsc` to
+    the runner's counter interface. Every rank of its mesh runs the same
+    runner, each with a ledger directory of its own: the counter's
+    collectives need all of them. (The reference's ``batch_size``, its
+    compiled scan length, has no counterpart: the port walks one coloring
+    a pod at a time.)
+    """
+
+    def counter(iterations):
+        _, per_iter = dist.count_iterations(list(iterations), seed=seed)
+        return per_iter
+
+    return counter

@@ -24,9 +24,9 @@ vectorised (the same arrays as the reference's loops, tested). The
 reference's gather operand, ``edge_chunks``, pads every
 (destination tile, source tile) pair to 512-edge chunks so the TPU can
 densify each chunk into a 128x128 tile; the card gathers edges directly,
-so :meth:`Graph.gather_layout` keeps the plain edge stream instead: on a
-social graph most tile pairs hold a few edges, and the padding multiplies
-the stream (``chip_smoke.py`` prints both sizes for ``rmat(20)``).
+so the port's gather operand (``kernels/spmm/ops.gather_prep_from_edges``)
+keeps the plain edge stream instead: on a social graph most tile pairs
+hold a few edges, and the padding multiplies the stream (``chip_smoke.py`` prints both sizes for ``rmat(20)``).
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ from functools import cached_property
 
 import numpy as np
 
-__all__ = ["Graph", "BsrMatrix", "BsrLayout", "GatherLayout",
-           "block_nonzero_index"]
+__all__ = ["Graph", "BsrMatrix", "BsrLayout", "block_nonzero_index"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,19 +105,6 @@ def block_nonzero_index(n_blocks: int, tile: int, edge_block, edge_src,
         flat, shape=(n_blocks, tile + 1),
         strides=(tile * flat.itemsize, flat.itemsize)).astype(np.int32)
     return col_ptr, edge_src[order].astype(np.uint8)
-
-
-@dataclasses.dataclass(frozen=True)
-class GatherLayout:
-    """The destination-sorted edge stream of the gather SpMM: destination
-    v's sources are ``src[row_ptr[v]:row_ptr[v+1]]``, and destination tile
-    t (vertices ``t*tile`` to ``(t+1)*tile - 1``) owns edges
-    ``tile_ptr[t]:tile_ptr[t+1]``."""
-
-    src: np.ndarray       # (m,) int32, sorted by destination
-    row_ptr: np.ndarray   # (n + 1,) int64
-    tile_ptr: np.ndarray  # (n_tiles + 1,) int64
-    tile: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,18 +204,6 @@ class Graph:
         nbr[row, col] = self.indices
         msk[row, col] = 1.0
         return nbr, msk
-
-    def gather_layout(self, tile: int = 128) -> GatherLayout:
-        """The gather SpMM's operand: :attr:`edges_by_dst` with its run
-        pointers, no padding and no blocks."""
-        src, dst = self.edges_by_dst
-        row_ptr = np.searchsorted(
-            dst, np.arange(self.n + 1, dtype=np.int64)).astype(np.int64)
-        n_tiles = -(-self.n // tile)
-        bounds = np.minimum(np.arange(n_tiles + 1, dtype=np.int64) * tile,
-                            self.n)
-        return GatherLayout(src=src, row_ptr=row_ptr,
-                            tile_ptr=row_ptr[bounds], tile=tile)
 
     def bsr_layout(self, tile: int = 128) -> "BsrLayout":
         """Where every edge lands in the BSR stream, without the blocks.

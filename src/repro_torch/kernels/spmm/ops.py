@@ -12,8 +12,9 @@ kernels walk only those nonzeros, and so does the plain version
 (``Graph.bsr``), so a social graph whose occupied blocks would take
 hundreds of GB dense takes a few GB here.
 ``prepare(graph, "gather")`` puts the destination-sorted edge stream
-(``Graph.gather_layout``) there instead, with its hubs' segments: no
-blocks, so it fits graphs whose dense blocks would not (a social graph's
+(``Graph.edges_by_dst``, through :func:`gather_prep_from_edges`, which
+takes any destination-sorted directed edges) there instead, with its
+hubs' segments: no blocks, so it fits graphs whose dense blocks would not (a social graph's
 edges scatter over millions of tile pairs). The gather kernel reads the
 table through a vertex-major scratch of ``128 / itemsize`` rows, allocated
 per call (:meth:`GatherPrep.scratch_bytes`). ``spmm(m, prep)`` applies
@@ -57,9 +58,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as _autotune
 
 __all__ = ["BsrPrep", "GatherPrep", "OpsPrep", "METHODS", "prepare",
-           "from_arrays", "spmm", "spmm_plain", "spmm_ops",
-           "ell_sweep", "spmm_gather", "spmm_gather_plain", "spmm_row_chunk",
-           "bsr_shapes", "gather_shapes", "BSR_ROWS", "GATHER_DESTS"]
+           "from_arrays", "gather_prep_from_edges", "spmm", "spmm_plain",
+           "spmm_ops", "ell_sweep", "spmm_gather", "spmm_gather_plain",
+           "spmm_row_chunk", "bsr_shapes", "gather_shapes", "BSR_ROWS",
+           "GATHER_DESTS"]
 
 # operand kinds of prepare(): the JAX package's "pallas_bsr" and
 # "pallas_gather" backends, then its XLA ones
@@ -279,10 +281,36 @@ def _gather_prep(g: Graph, device, tile: int = 128,
                  hub_degree: int = HUB_DEGREE) -> GatherPrep:
     """:func:`prepare`'s gather operand, its hubs cut at ``hub_degree``
     edges (``g.n`` cuts none)."""
+    return gather_prep_from_edges(g.n, *g.edges_by_dst, device=device,
+                                  tile=tile, hub_degree=hub_degree)
+
+
+def gather_prep_from_edges(n: int, src, dst, *, device=None,
+                           tile: int = 128,
+                           hub_degree: int = HUB_DEGREE) -> GatherPrep:
+    """The gather operand of the directed edges ``src[i] -> dst[i]`` on
+    ``n`` vertices (numpy arrays sorted by destination, else
+    ``ValueError``; ``device=None`` is CUDA): each destination sums its
+    sources in the order given, its hubs cut at ``hub_degree`` edges.
+    Nothing is symmetrised or deduplicated, so it holds one ``(destination
+    shard, source block)`` piece of the distributed ring
+    (``core/distributed``) as well as a whole graph's ``edges_by_dst``."""
     if hub_degree < 1:
         raise ValueError(f"hub_degree must be positive, got {hub_degree}")
-    lay = g.gather_layout(tile)
-    row_ptr = lay.row_ptr
+    src, dst = np.asarray(src), np.asarray(dst)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError("src and dst must be two (m,) arrays")
+    if len(src) and not (0 <= min(src.min(), dst.min())
+                         and max(src.max(), dst.max()) < n):
+        raise ValueError(f"edge endpoints outside [0, {n})")
+    if np.any(np.diff(dst) < 0):
+        raise ValueError("edges must be sorted by destination")
+    src = src.astype(np.int32)
+    row_ptr = np.searchsorted(dst, np.arange(n + 1, dtype=np.int64)
+                              ).astype(np.int64)
+    n_tiles = -(-n // tile)
+    tile_ptr = row_ptr[np.minimum(
+        np.arange(n_tiles + 1, dtype=np.int64) * tile, n)]
     deg = np.diff(row_ptr)
     hubs = np.flatnonzero(deg > hub_degree)
     n_seg = -(-deg[hubs] // hub_degree)
@@ -293,10 +321,11 @@ def _gather_prep(g: Graph, device, tile: int = 128,
     first = row_ptr[owner] + hub_degree * (
         np.arange(seg_ptr[-1]) - np.repeat(seg_ptr[:-1], n_seg))
     end = np.minimum(first + hub_degree, row_ptr[owner + 1])
+    device = resolve_device(device)
     return GatherPrep(
-        n=g.n, src=torch.as_tensor(lay.src, device=device),
+        n=n, src=torch.as_tensor(src, device=device),
         row_ptr=torch.as_tensor(row_ptr, device=device),
-        tile_ptr=torch.as_tensor(lay.tile_ptr, device=device), tile=tile,
+        tile_ptr=torch.as_tensor(tile_ptr, device=device), tile=tile,
         hub_degree=hub_degree,
         hub_vertex=torch.as_tensor(hubs.astype(np.int32), device=device),
         hub_seg_ptr=torch.as_tensor(seg_ptr.astype(np.int32), device=device),

@@ -703,3 +703,77 @@ def test_autotuned_engine_on_card_matches_untuned(card, method):
         g, "u7", autotune_blocks=True, **kw).count_colorful_batch(cols)
     assert torch.equal(t_plain, t_tuned) and torch.equal(r_plain, r_tuned)
     assert autotune.cache_info()
+
+
+# ------------------------------------------ distributed counting's pieces
+def _directed_piece(case, n=300):
+    """One ring piece's directed edges, sorted by destination: a
+    destination whose run outlasts HUB_DEGREE, or no edges at all."""
+    rng = np.random.default_rng(5)
+    if case == "empty":
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    hub = 3 * spmm_ops.HUB_DEGREE + 7
+    src = rng.integers(0, n, hub + 900)
+    dst = np.r_[np.full(hub, 41), rng.integers(0, n, 900)]
+    order = np.argsort(dst, kind="stable")
+    return src[order], dst[order]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["hub", "empty"])
+def test_gather_kernel_on_a_directed_piece_matches_plain(card, dtype, case):
+    src, dst = _directed_piece(case)
+    prep = spmm_ops.gather_prep_from_edges(300, src, dst, device=card)
+    if case == "hub":
+        assert prep.n_hubs == 1 and prep.n_segments == 4
+    m = _rand((70, 300), dtype, card, 3)
+    before = spmm_ops.spmm_gather.launches
+    got = spmm_ops.spmm_gather(m, prep)
+    assert spmm_ops.spmm_gather.launches == before + 1
+    _close(got, spmm_ops.spmm_gather_plain(m, prep), dtype)
+
+
+@pytest.mark.parametrize("d_model", [1, 2, 4])
+@pytest.mark.parametrize("tname", ["u10", "u12"])
+def test_scatter_remapped_ema_matches_plain(card, tname, d_model):
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.templates import get_template
+    t = get_template(tname)
+    meta = tdist.shard_plan(t.plan_dedup, t.k, d_model)
+    n = 2000
+    for idx, m in enumerate(meta):
+        if m.collective != "scatter":
+            continue
+        a_rows = meta[m.active].width_pad // d_model
+        # the gathered passive and its zero row
+        y_p = torch.cat([_rand((meta[m.passive].width_pad, n), torch.float32,
+                               card, idx), torch.zeros((1, n), device=card)])
+        for my in range(d_model):
+            ia, ip = (torch.as_tensor(a, device=card) for a in
+                      tdist.local_splits(meta, idx, d_model, my))
+            m_a = _rand((a_rows, n), torch.float32, card, my)
+            got = ema_ops.ema(m_a, y_p, ia, ip)
+            _close(got, ema_ops.ema_plain(m_a, y_p, ia, ip), torch.float32)
+
+
+def test_distributed_world_one_on_card_matches_gather_engine(card, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (DistributedPgbsc,
+                                              coloring_for_seed)
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        g = GRAPHS["grid"]()
+        d = DistributedPgbsc(g, "u7", make_mesh((1, 1), ("data", "model")),
+                             plan="dedup")
+        _, per = d.count_iterations([0, 1, 2], seed=4)
+        eng = CountingEngine(g, "u7", plan="dedup", spmm_method="gather",
+                             fuse_spmm_ema=False, device=card)
+        for it, got in per.items():
+            colors = coloring_for_seed(4 * 1_000_003 + it, d.n_pad, g.n, 7,
+                                       device=card)[:g.n]
+            assert got == float(eng.count_colorful(colors)[0])
+    finally:
+        dist.destroy_process_group()

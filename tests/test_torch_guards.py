@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import api, interop
+from repro_torch.core.distributed import coloring_for_seed
 from repro_torch.core.engines import CountingEngine
 from repro_torch.core.templates import get_template
 from repro_torch.device import resolve_device
@@ -79,6 +80,7 @@ ENTRY_POINTS = {
         {1: ([[0]], [[0]])}, **kw),
     "batch_colorings": lambda **kw: batch_colorings(0, range(2), 5, 3, **kw),
     "iteration_key": lambda **kw: iteration_key(0, 1, **kw),
+    "coloring_for_seed": lambda **kw: coloring_for_seed(0, 128, 16, 3, **kw),
     "api.count": lambda **kw: api.count(_TINY, "u3", max_iters=1, **kw),
     "api.count_many": lambda **kw: api.count_many(
         _TINY, ["u3", "path4", "star4"], max_iters=1, **kw),
@@ -131,7 +133,10 @@ def test_new_modules_are_scanned():
             "src/repro_torch/launch/__init__.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/graph/io.py",
-            "src/repro_torch/obs/validate.py"} <= names
+            "src/repro_torch/obs/validate.py",
+            "src/repro_torch/core/distributed.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/ranks.py"} <= names
 
 
 def test_importing_the_service_and_launcher_loads_no_jax():

@@ -241,6 +241,49 @@ def test_star_hub_spans_its_segments_and_none_without_a_split():
         spmm_ops._gather_prep(g, "cpu", hub_degree=0)
 
 
+def _gather_operand_from_graph(g, tile=128, hub_degree=HUB_DEGREE):
+    """The single-device gather operand as it was built before the
+    edge-array builder: the graph's own destination-sorted stream (CSR
+    order), its run pointers and hub segments, as numpy arrays by field."""
+    src, dst = g.edges_by_dst
+    row_ptr = np.searchsorted(dst, np.arange(g.n + 1)).astype(np.int64)
+    n_tiles = -(-g.n // tile)
+    tile_ptr = row_ptr[np.minimum(np.arange(n_tiles + 1) * tile, g.n)]
+    deg = np.diff(row_ptr)
+    hubs = np.flatnonzero(deg > hub_degree)
+    n_seg = -(-deg[hubs] // hub_degree)
+    seg_ptr = np.concatenate([[0], np.cumsum(n_seg)]).astype(np.int64)
+    owner = np.repeat(hubs, n_seg)
+    first = row_ptr[owner] + hub_degree * (
+        np.arange(seg_ptr[-1]) - np.repeat(seg_ptr[:-1], n_seg))
+    end = np.minimum(first + hub_degree, row_ptr[owner + 1])
+    return {"src": src.astype(np.int32), "row_ptr": row_ptr,
+            "tile_ptr": tile_ptr, "hub_vertex": hubs.astype(np.int32),
+            "hub_seg_ptr": seg_ptr.astype(np.int32),
+            "seg": np.stack([first, end], axis=1)}
+
+
+@pytest.mark.parametrize("gname", ["rmat12", "grid64"])
+def test_gather_operand_from_edge_arrays_keeps_the_graph_operand(gname):
+    g = rmat(12) if gname == "rmat12" else grid_2d(64, 64)
+    prep = spmm_ops.prepare(g, "gather", device="cpu")
+    want = _gather_operand_from_graph(g)
+    for field, arr in want.items():
+        got = getattr(prep, field)
+        assert got.dtype == torch.as_tensor(arr).dtype, field
+        np.testing.assert_array_equal(got.numpy(), arr, err_msg=field)
+    assert (prep.n, prep.tile, prep.hub_degree) == (g.n, 128, HUB_DEGREE)
+    if gname == "rmat12":
+        assert prep.n_hubs > 0
+    # the builder takes the stream as it is sorted, and refuses the same
+    # edges with the destinations' runs in descending order
+    src, dst = g.edges_by_dst
+    order = np.argsort(-dst.astype(np.int64), kind="stable")
+    with pytest.raises(ValueError, match="sorted by destination"):
+        spmm_ops.gather_prep_from_edges(g.n, src[order], dst[order],
+                                        device="cpu")
+
+
 def _gather_walk(m, prep):
     """The gather kernel's walk in numpy: per chunk of rows, the
     vertex-major scratch, every run of at most hub_degree edges summed
