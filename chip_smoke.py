@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives thirteen paths of
+``src/repro_torch/csrc``) and nothing of JAX. It drives fourteen paths of
 the port, each with every kernel's launch counter set to 0 just before it
 and read just after:
 
@@ -70,7 +70,24 @@ and read just after:
   above; the k=10 census through ``compile_query(engine_cache=)`` twice,
   built once; and a u12 group whose two injected dispatch faults step its
   degradation ladder to the unfused engine, then one whose four step it to
-  level 2 (the gather SpMM kernel), each with the same estimate.
+  level 2 (the gather SpMM kernel), each with the same estimate;
+* **(G) the GNNs the motif features feed:** (G0) GraphSAGE, PNA,
+  GatedGCN (with and without ``edge_attr``) and NequIP at
+  ``configs.reduced_config``, built once on the CPU from a seeded
+  generator and copied to the card: forward, loss, every gradient (and
+  NequIP's forces) and the loss after 5 AdamW steps against the CPU
+  (``rtol 1e-5`` of the largest magnitude; ``1e-4`` after the steps);
+  (G1) ``examples/gnn_motif_features_torch.main`` on the card and the
+  CPU: equal motif features, final losses within ``rtol 1e-3``; (G2)
+  ``api.motif_features(grid_2d(1024, 1024), ["u3", "path4", "star4"],
+  n_iters=8)`` on the card's kernels (the path's launch counters), equal
+  to the CPU port's, with the eMA and fused kernels held against their
+  plain versions at the motif engines' shapes (``at_paths``), then
+  graphsage-reddit at its registered width trained full-batch on the
+  mesh with those features (20 AdamW steps, the last loss below the
+  first), graphsage-reddit on ``data.synthetic.gnn_batch``'s
+  ``ogb_products`` (2,449,408 nodes, 61,859,328 edges), pna and gatedgcn
+  at ``minibatch_lg`` and nequip at ``molecule`` with forces by autograd.
 
 In order it prints:
 
@@ -130,8 +147,13 @@ In order it prints:
    per coloring beside ``api.count``'s, the cold engine build, peak and
    released device memory, each HTTP request's time from POST to result,
    the prewarm, a cached answer's round trip, and each step's launches;
-9. the script's total seconds, one JSON line with every kernel's numbers,
-   then the last line ``{"ok": true, "device": {...}}``.
+9. (G)'s ``[gnn parity]`` and ``[gnn example]`` lines, the motif
+   engines' ``[sweep]`` lines, and a ``[gnn]`` line per run: the arch, the cell, n, e, the parameter count, seconds
+   per step (after one untimed step), ``max_memory_allocated`` (beside
+   the analytic peak for GraphSAGE at ``ogb_products``) and the losses,
+   after one step under ``torch.profiler``;
+10. the script's total seconds, one JSON line with every kernel's
+    numbers, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line; without a card
 (or without the package beside this file) it exits non-zero at once.
@@ -2754,6 +2776,321 @@ def phase_rmat_defaults(g, est_b: dict, batch_b: int) -> dict:
     return launches
 
 
+# ------------------------------------------------ (G) the GNNs on the card
+GNN_OPT = dict(lr=1e-2, warmup_steps=5, total_steps=200, weight_decay=0.0)
+MOTIFS = ["u3", "path4", "star4"]
+# (arch id, edge_attr): every GNN kind of the registry at reduced_config
+GNN_PARITY = (("graphsage-reddit", False), ("pna", False),
+              ("gatedgcn", False), ("gatedgcn", True), ("nequip", False))
+
+
+def _close_to_largest(label: str, got, want, rtol: float,
+                      atol: float = 1e-6) -> float:
+    """Card against CPU: every element within ``atol + rtol * max|want|``
+    (``index_add_`` and ``scatter_reduce`` add with atomics on the card,
+    so their order changes from run to run). -> the largest error."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    scale = want.abs().max().item() if want.numel() else 0.0
+    if not err <= atol + rtol * scale:
+        raise AssertionError(f"{label}: card against CPU {err!r} over "
+                             f"{atol} + {rtol} * {scale!r}")
+    return err
+
+
+def _gnn_fns(kind: str):
+    """(forward, loss) of a model kind."""
+    from repro_torch.models import equivariant, gnn
+    if kind == "nequip":
+        return equivariant.nequip_forward, equivariant.nequip_energy_loss
+    return gnn.gnn_forward, gnn.gnn_loss
+
+
+def _build_model(cfg, d_in: int, device):
+    """The kind's model drawn on the CPU from generator seed 0, then moved
+    to ``device``: the card's and the CPU's start from one set."""
+    import torch
+
+    from repro_torch.models.equivariant import build_nequip
+    from repro_torch.models.gnn import build_gnn
+    gen = torch.Generator().manual_seed(0)
+    model = build_nequip(cfg, device="cpu", generator=gen) \
+        if cfg.kind == "nequip" else build_gnn(cfg, d_in, device="cpu",
+                                               generator=gen)
+    return model.to(device)
+
+
+def phase_gnn_parity() -> None:
+    """(G0): every GNN kind at ``reduced_config``, card against CPU from
+    one set of parameters: the forward, the loss, every gradient (and
+    NequIP's forces), then the loss after 5 AdamW steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import gnn_batch
+    from repro_torch.models.equivariant import nequip_forces
+    from repro_torch.optim.optimizer import AdamW, AdamWConfig
+
+    for arch_id, edge_attr in GNN_PARITY:
+        arch = reduced_config(arch_id)
+        kind = arch.model.kind
+        cell = "smoke_molecule" if kind == "nequip" else "smoke_full"
+        forward, loss_fn = _gnn_fns(kind)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            batch = gnn_batch(arch, cell, 3, device=dev)
+            d_in = 0 if kind == "nequip" else batch["x"].shape[1]
+            if edge_attr:        # narrower than d_in: the model pads it
+                e = batch["edge_index"].shape[1]
+                batch["edge_attr"] = torch.as_tensor(
+                    np.random.default_rng(5).normal(size=(e, d_in - 2))
+                    .astype(np.float32), device=dev)
+            model = _build_model(arch.model, d_in, dev)
+            out = forward(model, batch)
+            loss = loss_fn(model, batch)
+            loss.backward()
+            grads = [p.grad for p in model.parameters()]
+            forces = nequip_forces(model, batch)[1] if kind == "nequip" \
+                else None
+            opt = AdamW(model.named_parameters(), AdamWConfig(**GNN_OPT))
+            for _ in range(5):
+                opt.zero_grad(set_to_none=True)
+                loss_fn(model, batch).backward()
+                opt.step()
+            after = loss_fn(model, batch).item()
+            runs[dev] = (out, loss.item(), grads, forces, after)
+        (out_c, l_c, g_c, f_c, a_c), (out_g, l_g, g_g, f_g, a_g) = \
+            runs["cpu"], runs["cuda"]
+        label = arch_id + (" edge_attr" if edge_attr else "")
+        err = _close_to_largest(f"{label} forward", out_g, out_c, 1e-5)
+        _close_to_largest(f"{label} loss", torch.tensor(l_g),
+                          torch.tensor(l_c), 1e-5)
+        g_err = 0.0
+        for i, (a, b) in enumerate(zip(g_g, g_c)):
+            if (a is None) != (b is None):
+                raise AssertionError(f"{label}: gradient {i} on one side")
+            if b is not None:
+                g_err = max(g_err, _close_to_largest(
+                    f"{label} gradient {i}", a, b, 1e-5))
+        if f_c is not None:
+            _close_to_largest(f"{label} forces", f_g, f_c, 1e-5)
+        if not abs(a_g - a_c) <= 1e-4 * abs(a_c):
+            raise AssertionError(f"{label}: loss after 5 AdamW steps "
+                                 f"{a_g!r} on the card, {a_c!r} on the CPU")
+        print(f"[gnn parity] {label} {cell}: forward max err {err:.3e}, "
+              f"gradients {g_err:.3e}, loss {l_g!r} (CPU {l_c!r}), after 5 "
+              f"AdamW steps {a_g!r} (CPU {a_c!r})", flush=True)
+
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_gnn_example() -> None:
+    """(G1): ``examples/gnn_motif_features_torch.main`` on the card and on
+    the CPU: equal motif features, final losses within ``rtol 1e-3``."""
+    import numpy as np
+    ex = _example("gnn_motif_features_torch")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        runs[dev] = ex.main(device=dev)
+        print(f"[gnn example] {dev}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    cpu, card = runs["cpu"], runs["cuda"]
+    if not np.array_equal(card["features"], cpu["features"]):
+        raise AssertionError("the example's motif features differ between "
+                             "the card and the CPU")
+    for key in ("random", "motif"):
+        lc, lg = cpu[key]["losses"][-1], card[key]["losses"][-1]
+        print(f"[gnn example] {key}: final_loss {lg!r} held-out accuracy "
+              f"{card[key]['accuracy']} on the card; {lc!r} and "
+              f"{cpu[key]['accuracy']} on the CPU", flush=True)
+        if not abs(lg - lc) <= 1e-3 * abs(lc):
+            raise AssertionError(f"example {key}: final loss {lg!r} on the "
+                                 f"card, {lc!r} on the CPU")
+
+
+def _train_steps(label: str, model, batch, loss_fn, steps: int, *,
+                 forces=False):
+    """One untimed AdamW step, ``steps`` timed, and one under
+    ``torch.profiler``. -> (losses, seconds a timed step, peak bytes over
+    all of them)."""
+    import torch
+
+    from repro_torch.models.equivariant import nequip_forces
+    from repro_torch.optim.optimizer import AdamW, AdamWConfig
+    opt = AdamW(model.named_parameters(), AdamWConfig(**GNN_OPT))
+    losses = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        if forces:           # forces on the same graph as the loss
+            energy, f = nequip_forces(model, batch)
+            loss = torch.mean((energy - batch["labels"]) ** 2)
+            if not torch.isfinite(f).all():
+                raise AssertionError("non-finite forces")
+        else:
+            loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    _sync()
+    sec = (time.perf_counter() - t0) / steps
+    _profile(f"{label}, one AdamW step", step)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return losses, sec, torch.cuda.max_memory_allocated()
+
+
+def _gnn_line(arch_id, cell, batch, model, losses, sec, peak, extra=""):
+    e = batch["edge_index"].shape[1]
+    n = batch["positions" if "positions" in batch else "x"].shape[0]
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[gnn] {arch_id} {cell}: n={n} e={e} params={params} "
+          f"s_per_step={sec!r} max_memory_allocated={peak} "
+          f"({peak / GIB:.2f} GiB){extra} losses={losses}", flush=True)
+
+
+def sage_peak_bytes(n: int, e: int, d_feat: int, d: int = 128) -> int:
+    """The analytic peak of a full-batch GraphSAGE step (f32, 2 layers),
+    reached in the backward of the second layer's mean: its ``(E, d)``
+    message gradient beside the four ``(N, d)`` activations autograd still
+    holds for the embedding and the first layer (the embedding's ReLU
+    output, the first mean, ReLU output and normalized output), the two
+    ``(N, d)`` gradients in flight, and the batch (features, int32 edges,
+    labels, mask, graph ids)."""
+    f = 4
+    return e * d * f + 6 * n * d * f + n * d_feat * f + 2 * e * 4 + 3 * n * 4
+
+
+def phase_gnn_full(g) -> tuple[dict, dict]:
+    """(G2): ``motif_features`` of u3, path4 and star4 on the mesh through
+    the card's kernels, held equal to the CPU port's; GraphSAGE at
+    graphsage-reddit's registered width trained on them with 20 AdamW
+    steps; graphsage-reddit at ``ogb_products``; pna and gatedgcn at
+    ``minibatch_lg``; nequip at ``molecule`` (forces by autograd).
+    Returns the kernels' launches over the motif features and the mesh's
+    training, and the motif engines' shape sweeps (``phase_shape_sweep``)
+    by label."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.core.engines import CountingEngine
+    from repro_torch.core.templates import TemplateSpec
+    from repro_torch.data.synthetic import gnn_batch
+    from repro_torch.models.gnn import gnn_loss
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    feats = api.motif_features(g, MOTIFS, n_iters=8, seed=0)
+    _sync()
+    motif_s = time.perf_counter() - t0
+    launched = _read_counts()
+    if feats.shape != (g.n, 3) or not np.isfinite(feats).all():
+        raise AssertionError(f"bad motif features {feats.shape}")
+    bsr_side = ("spmm_bsr", "ema", "fused_spmm_ema", "fused_spmm_ema_shared")
+    if sum(launched[k] for k in bsr_side) == 0 or any(
+            v for k, v in launched.items() if k not in bsr_side):
+        raise AssertionError(f"motif features launched {launched}")
+    t0 = time.perf_counter()
+    feats_cpu = api.motif_features(g, MOTIFS, n_iters=8, seed=0,
+                                   device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(feats, feats_cpu):
+        raise AssertionError(
+            f"motif features on the mesh: {int((feats != feats_cpu).sum())} "
+            f"entries differ from the CPU's, max |diff| "
+            f"{float(np.abs(feats - feats_cpu).max())!r}")
+    print(f"[gnn] motif_features({MOTIFS}) on grid_2d(1024,1024), 8 "
+          f"colorings: {motif_s:.3f} s with the engine builds, launches "
+          f"{launched}, column means {feats.mean(0).tolist()}; equal to "
+          f"the CPU port's exactly (CPU {cpu_s:.1f} s)", flush=True)
+
+    arch = get_config("graphsage-reddit")
+    cfg = arch.model
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(g.n, 8)).astype(np.float32)
+    # a random linear teacher on the random columns: labels to be learnt
+    labels = (base @ rng.normal(size=(8, cfg.n_classes))).argmax(1)
+    src, dst = g.edges_by_dst
+    dev = torch.device("cuda")
+    batch = {"x": torch.as_tensor(np.concatenate([base, feats], 1),
+                                  device=dev),
+             "edge_index": torch.as_tensor(np.stack([src, dst]).astype(
+                 np.int32), device=dev),
+             "labels": torch.as_tensor(labels.astype(np.int32), device=dev),
+             "node_graph": torch.zeros(g.n, dtype=torch.int32, device=dev),
+             "pool": False, "n_graphs": 1}
+    model = _build_model(cfg, 11, dev)
+    # 20 AdamW steps: one untimed, 18 timed, one profiled
+    losses, sec, peak = _train_steps("graphsage-reddit on the mesh", model,
+                                     batch, gnn_loss, 18)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh GraphSAGE did not learn: {losses}")
+    _gnn_line("graphsage-reddit", "grid_2d(1024,1024) + motif features",
+              batch, model, losses, sec, peak)
+    counts = _read_counts()
+    del batch, model
+    torch.cuda.empty_cache()
+    # each kernel at the shapes the motif engines launch, against its
+    # plain version: one engine a template size, one batch of 8 colorings
+    specs = [TemplateSpec.of(t) for t in MOTIFS]
+    sweeps = {}
+    for k in sorted({s.k for s in specs}):
+        trees = [s.tree for s in specs if s.k == k]
+        eng = CountingEngine(g, trees if len(trees) > 1 else trees[0],
+                             engine="pgbsc", plan="dedup", device=dev)
+        sweeps[f"gnn_motif_mesh k={k}"] = phase_shape_sweep(
+            f"motif k={k}", g, k, min(eng.batch_size, 8), kernel_shapes(eng))
+        del eng
+        torch.cuda.empty_cache()
+
+    for arch_id, cell, seed in (("graphsage-reddit", "ogb_products", 0),
+                                ("pna", "minibatch_lg", 1),
+                                ("gatedgcn", "minibatch_lg", 2),
+                                ("nequip", "molecule", 3)):
+        arch = get_config(arch_id)
+        t0 = time.perf_counter()
+        batch = gnn_batch(arch, cell, seed, device="cuda")
+        _sync()
+        made = time.perf_counter() - t0
+        kind = arch.model.kind
+        d_in = 0 if kind == "nequip" else batch["x"].shape[1]
+        model = _build_model(arch.model, d_in, dev)
+        losses, sec, peak = _train_steps(f"{arch_id} {cell}", model, batch,
+                                         _gnn_fns(kind)[1], 3,
+                                         forces=kind == "nequip")
+        extra = f" batch_made_s={made:.2f}"
+        if arch_id == "graphsage-reddit":
+            want = sage_peak_bytes(batch["x"].shape[0],
+                                   batch["edge_index"].shape[1],
+                                   batch["x"].shape[1])
+            extra += f" analytic_peak={want} ({peak - want:+d} B)"
+        _gnn_line(arch_id, cell, batch, model, losses, sec, peak, extra)
+        del batch, model
+        torch.cuda.empty_cache()
+    return counts, sweeps
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -2847,6 +3184,13 @@ def main() -> int:
     _sync()
     by_path["service"] = phase_service(g, res_u12, est_u13)
     _sync()
+    t_gnn = time.perf_counter()
+    phase_gnn_parity()
+    phase_gnn_example()
+    by_path["gnn_motif_mesh"], gnn_sweeps = phase_gnn_full(g)
+    sweeps.update(gnn_sweeps)
+    print(f"[gnn] phase (G) took {time.perf_counter() - t_gnn:.1f} s",
+          flush=True)
     # each kernel's numbers at the f32 shapes of the path it was added
     # for; its launches are those of that path's full run
     rows_of = {

@@ -1,4 +1,4 @@
-"""Carry a JAX engine's state into the port.
+"""Carry a JAX engine's state, and a JAX model's weights, into the port.
 
 The JAX package hands its state over as numpy arrays (the port never
 imports it): the graph's CSR arrays, the BSR block stream of its SpMM or
@@ -9,6 +9,16 @@ into the port's ``Graph``, BSR operand (the carried blocks' nonzero index:
 the dense blocks stay on the host) and split tables on a device, and
 :func:`engine_from_state` builds a port engine that runs on exactly that
 state instead of rebuilding it.
+
+The reference's models hand over their parameter pytree as numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``): nested dicts and lists
+whose paths are the port modules' parameter names (``layers.0.nbr.w`` is
+``params["layers"][0]["nbr"]["w"]``; the port's ``self_`` is the
+reference's ``self``). :func:`gnn_from_params` and
+:func:`nequip_from_params` build the port's module on those weights,
+:func:`params_to_arrays` gives them back in the reference's layout, and
+:func:`adamw_state_from_arrays` loads the reference's AdamW state
+(``{"mu", "nu", "step"}``) into the port's :class:`AdamW`.
 """
 
 from __future__ import annotations
@@ -20,9 +30,12 @@ from repro_torch.core.engines import CountingEngine
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.spmm import ops as spmm_ops
+from repro_torch.models.equivariant import build_nequip
+from repro_torch.models.gnn import build_gnn
 
 __all__ = ["graph_from_arrays", "bsr_from_arrays", "splits_from_arrays",
-           "engine_from_state"]
+           "engine_from_state", "gnn_from_params", "nequip_from_params",
+           "params_to_arrays", "adamw_state_from_arrays"]
 
 
 def graph_from_arrays(n: int, indptr, indices) -> Graph:
@@ -89,3 +102,97 @@ def engine_from_state(template, *, n: int, indptr, indices, bsr: dict,
         eng._fused_prep = prep
     eng._splits = tables
     return eng
+
+
+# ------------------------------------------------------------ model weights
+def _ref_path(name: str) -> tuple:
+    """A port parameter name -> its path in the reference's pytree."""
+    return tuple(int(p) if p.isdigit() else ("self" if p == "self_" else p)
+                 for p in name.split("."))
+
+
+def _leaf_paths(tree, prefix=()) -> set:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix}
+    return set().union(*(_leaf_paths(v, prefix + (k,)) for k, v in items))
+
+
+def _lookup(tree, path):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def _load(module, params):
+    """Copy the reference's pytree ``params`` into ``module``'s
+    parameters, which must name exactly its leaves at their shapes."""
+    named = dict(module.named_parameters())
+    have, want = {_ref_path(n) for n in named}, _leaf_paths(params)
+    if have != want:
+        raise ValueError(f"parameter trees differ: the port's has "
+                         f"{sorted(map(str, have - want))} of its own, the "
+                         f"carried one {sorted(map(str, want - have))}")
+    with torch.no_grad():
+        for name, p in named.items():
+            a = _lookup(params, _ref_path(name))
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{name}: carried shape {a.shape}, the "
+                                 f"port's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(a.astype(np.float32)).to(p.dtype))
+    return module
+
+
+def gnn_from_params(cfg, params, d_in: int, *, device=None):
+    """The port's :class:`~repro_torch.models.gnn.GNN` of ``cfg`` holding
+    the reference's ``init_gnn`` parameters ``params`` (numpy leaves)."""
+    return _load(build_gnn(cfg, d_in, device=device), params)
+
+
+def nequip_from_params(cfg, params, *, device=None):
+    """The port's :class:`~repro_torch.models.equivariant.NequIP` of
+    ``cfg`` holding the reference's ``init_nequip`` parameters."""
+    n_species = np.asarray(params["species_embed"]).shape[0]
+    return _load(build_nequip(cfg, n_species, device=device), params)
+
+
+def params_to_arrays(module) -> dict:
+    """``module``'s parameters as the reference's pytree of numpy arrays
+    (bfloat16 ones as float32)."""
+    root: dict = {}
+    for name, p in module.named_parameters():
+        *head, last = _ref_path(name)
+        node = root
+        for k in head:
+            node = node.setdefault(k, {})
+        t = p.detach().cpu()
+        node[last] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
+
+
+def adamw_state_from_arrays(opt, state: dict) -> None:
+    """Load the reference's AdamW state ``{"mu", "nu", "step"}`` (numpy
+    leaves) into ``opt``, an :class:`~repro_torch.optim.optimizer.AdamW`
+    built from ``named_parameters()``, so its next step is the
+    reference's next step."""
+    step = int(np.asarray(state["step"]))
+    for group in opt.param_groups:
+        if "param_names" not in group:
+            raise ValueError("build the AdamW from module.named_parameters() "
+                             "to carry the reference's state into it")
+        group["step"] = step
+        for name, p in zip(group["param_names"], group["params"]):
+            path = _ref_path(name)
+            opt.state[p] = {
+                k: torch.from_numpy(_lookup(state[k], path).astype(
+                    np.float32)).to(p.device) for k in ("mu", "nu")}

@@ -43,8 +43,9 @@ path). Compact spec-string form, for the CLI::
 A copy of the JAX package's ``resilience/faults.py`` (the same points,
 modes, streams and truncation offsets, so a chaos plan fires identically
 in both packages). The port's runner hits ``kernel.dispatch`` and
-``ledger.write``; the other points belong to the service stack, which is
-not ported yet (``ROADMAP.md``).
+``ledger.write``; its service stack hits the other points
+(``engine.build``, ``cache.read``, ``http.handler``, ``dispatch.hang``,
+``dispatch.loop``).
 """
 
 from __future__ import annotations

@@ -777,3 +777,57 @@ def test_distributed_world_one_on_card_matches_gather_engine(card, tmp_path):
             assert got == float(eng.count_colorful(colors)[0])
     finally:
         dist.destroy_process_group()
+
+
+def _close_to_largest(got, want, rtol, atol=1e-6):
+    """Card against CPU: every element within ``atol + rtol * max|want|``
+    (``index_add_`` adds with atomics on the card, in no fixed order)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    assert got.shape == want.shape
+    scale = want.abs().max().item() if want.numel() else 0.0
+    assert (got - want).abs().max().item() <= atol + rtol * scale
+
+
+@pytest.mark.parametrize("arch_id", ["graphsage-reddit", "pna", "gatedgcn"])
+def test_gnn_forward_and_backward_on_card_match_cpu(card, arch_id):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import gnn_batch
+    from repro_torch.models.gnn import build_gnn, gnn_forward, gnn_loss
+    arch = reduced_config(arch_id)
+    models = {}
+    for dev in ("cpu", card):
+        batch = gnn_batch(arch, "smoke_full", 3, device=dev)
+        model = build_gnn(arch.model, 9, device="cpu").to(dev)
+        out = gnn_forward(model, batch)
+        gnn_loss(model, batch).backward()
+        models[str(dev)] = (out, model)
+    (out_c, m_c), (out_g, m_g) = models["cpu"], models[str(card)]
+    _close_to_largest(out_g, out_c, 1e-5)
+    for p_c, p_g in zip(m_c.parameters(), m_g.parameters()):
+        assert (p_c.grad is None) == (p_g.grad is None)
+        if p_c.grad is not None:
+            _close_to_largest(p_g.grad, p_c.grad, 1e-5)
+
+
+def test_nequip_energy_forces_and_backward_on_card_match_cpu(card):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import gnn_batch
+    from repro_torch.models.equivariant import (build_nequip,
+                                                nequip_energy_loss,
+                                                nequip_forces)
+    arch = reduced_config("nequip")
+    got = {}
+    for dev in ("cpu", card):
+        batch = gnn_batch(arch, "smoke_molecule", 3, device=dev)
+        model = build_nequip(arch.model, device="cpu").to(dev)
+        energy, forces = nequip_forces(model, batch)
+        nequip_energy_loss(model, batch).backward()
+        got[str(dev)] = (energy, forces, [p.grad for p in model.parameters()])
+    (e_c, f_c, g_c), (e_g, f_g, g_g) = got["cpu"], got[str(card)]
+    _close_to_largest(e_g, e_c, 1e-5)
+    _close_to_largest(f_g, f_c, 1e-5)
+    for a, b in zip(g_g, g_c):
+        # the last layer's l>0 mixers and gates reach no energy
+        assert (a is None) == (b is None)
+        if b is not None:
+            _close_to_largest(a, b, 1e-5)

@@ -17,15 +17,20 @@ import torch
 from repro_torch import api, interop
 from repro_torch.core.distributed import coloring_for_seed
 from repro_torch.core.engines import CountingEngine
+from repro_torch.configs import reduced_config
 from repro_torch.core.templates import get_template
+from repro_torch.data.synthetic import gnn_batch
 from repro_torch.device import resolve_device
 from repro_torch.graph.coloring import batch_colorings, iteration_key
 from repro_torch.graph.generators import grid_2d
 from repro_torch.kernels.fused.ops import fused_fits_smem
 from repro_torch.kernels.spmm import ops as spmm_ops
+from repro_torch.models.equivariant import build_nequip
+from repro_torch.models.gnn import build_gnn
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples").glob("*_torch.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
@@ -48,7 +53,11 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.api, repro_torch.interop; "
+    code = ("import sys, repro_torch.api, repro_torch.interop, "
+            "repro_torch.configs, repro_torch.models.gnn, "
+            "repro_torch.models.equivariant, repro_torch.optim.optimizer, "
+            "repro_torch.data.synthetic, repro_torch.graph, "
+            "repro_torch.obs; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     env_path = str(ROOT / "src")
@@ -101,6 +110,19 @@ ENTRY_POINTS = {
     "prepare_segment": lambda **kw: spmm_ops.prepare(_TINY, "segment", **kw),
     "prepare_ell": lambda **kw: spmm_ops.prepare(_TINY, "ell", **kw),
     "prepare_dense": lambda **kw: spmm_ops.prepare(_TINY, "dense", **kw),
+    "build_gnn": lambda **kw: build_gnn(
+        reduced_config("graphsage-reddit").model, 4, **kw),
+    "build_nequip": lambda **kw: build_nequip(
+        reduced_config("nequip").model, **kw),
+    "gnn_batch": lambda **kw: gnn_batch(reduced_config("pna"), "smoke_full",
+                                        0, **kw),
+    "gnn_from_params": lambda **kw: interop.gnn_from_params(
+        reduced_config("pna").model, interop.params_to_arrays(build_gnn(
+            reduced_config("pna").model, 4, device="cpu")), 4, **kw),
+    "nequip_from_params": lambda **kw: interop.nequip_from_params(
+        reduced_config("nequip").model, interop.params_to_arrays(
+            build_nequip(reduced_config("nequip").model, device="cpu")),
+        **kw),
 }
 
 
@@ -136,7 +158,18 @@ def test_new_modules_are_scanned():
             "src/repro_torch/obs/validate.py",
             "src/repro_torch/core/distributed.py",
             "src/repro_torch/launch/mesh.py",
-            "src/repro_torch/launch/ranks.py"} <= names
+            "src/repro_torch/launch/ranks.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/configs/graphsage_reddit.py",
+            "src/repro_torch/models/gnn.py",
+            "src/repro_torch/models/equivariant.py",
+            "src/repro_torch/optim/optimizer.py",
+            "src/repro_torch/data/synthetic.py",
+            "examples/gnn_motif_features_torch.py",
+            "examples/quickstart_torch.py",
+            "examples/distributed_counting_torch.py"} <= names
 
 
 def test_importing_the_service_and_launcher_loads_no_jax():
