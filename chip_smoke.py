@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives fourteen paths of
+``src/repro_torch/csrc``) and nothing of JAX. It drives sixteen paths of
 the port, each with every kernel's launch counter set to 0 just before it
 and read just after:
 
@@ -87,7 +87,26 @@ and read just after:
   mesh with those features (20 AdamW steps, the last loss below the
   first), graphsage-reddit on ``data.synthetic.gnn_batch``'s
   ``ogb_products`` (2,449,408 nodes, 61,859,328 edges), pna and gatedgcn
-  at ``minibatch_lg`` and nequip at ``molecule`` with forces by autograd.
+  at ``minibatch_lg`` and nequip at ``molecule`` with forces by autograd;
+* **(L) the LM, MoE and AutoInt models** (torch's own ops; no counting
+  kernel may launch): (L0) the five LMs and AutoInt at
+  ``configs.reduced_config`` in f32, card against CPU from one set of
+  parameters: ``lm_forward`` full and blocked (8-token chunks),
+  ``lm_prefill_chunked`` then three ``lm_decode_step``s with the cache,
+  AutoInt's forward, retrieval scores and loss (``rtol 1e-5`` of the
+  largest magnitude); (L1) one block of each kind at its registered
+  width in f32 (llama3-8b, gemma3-1b local and global, deepseek-moe-16b's
+  dense front and MoE, qwen3's MoE with QK-norm), card against CPU, the
+  MoE router's top-k ids equal but for near-ties; (L2)
+  ``tests/test_chunked_prefill.py``'s checks at full width in f32 (2 x
+  2048, chunk 512) for smollm-360m, gemma3-1b and llama3-8b, and the MoE
+  models' correlation check in bf16; (L3) every LM at its registered
+  width and depth in bf16: a batch of 8
+  prompts of 2,048 tokens through ``lm_prefill_chunked`` (chunk 1024)
+  into a 2,080-row cache, then 32 greedy decode steps, llama3-8b also
+  ``lm_prefill`` at 1 x 4096; (L4) AutoInt at its registered cells in f32
+  (``serve_p99``, ``serve_bulk``, ``retrieval_cand``, ``train_batch``
+  forward and loss).
 
 In order it prints:
 
@@ -152,7 +171,14 @@ In order it prints:
    per step (after one untimed step), ``max_memory_allocated`` (beside
    the analytic peak for GraphSAGE at ``ogb_products``) and the losses,
    after one step under ``torch.profiler``;
-10. the script's total seconds, one JSON line with every kernel's
+10. (L)'s ``[lm]`` lines: each check's largest error; for each LM its
+    prefill seconds and tokens/s, decode ms a step, and peak bytes beside
+    the analytic model (parameters + cache + the larger of the last
+    chunk's logits and one layer's attention scores), with one decode
+    step and one prefill chunk of llama3-8b and deepseek-moe-16b under
+    ``torch.profiler``; for AutoInt each cell's ms a batch and peak
+    beside parameters + batch + activations;
+11. the script's total seconds, one JSON line with every kernel's
     numbers, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line; without a card
@@ -176,6 +202,8 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # device-to-device copy (read + write), "read_bw" of the fastest read,
 # "bw" the larger of the two, "f32_flops" FLOP/s of an f32 matmul
 PEAKS: dict = {}
+PEAK_BATCHES = 5          # timed batches a yardstick (``phase_peaks``)
+PEAK_WARM_COPIES = 200    # 4 GiB copies before the first, ~0.55 s
 # phase_full's peak while the BSR operand still held its dense blocks on
 # the card (an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §4)
 DENSE_BLOCKS_U12_PEAK = 31_835_362_816
@@ -338,34 +366,33 @@ def phase_peaks() -> None:
     device-to-device ``copy_`` (read and write counted) and the fastest of
     seven reads of the same 4 GiB (``sum``, row sums, ``amax``, the ``dot``
     of its halves, and f32 ``mv`` at three widths; each reads it once and
-    writes next to nothing), each the median of 12; and the f32 FMA rate
-    (an 8192^3 f32 matmul with TF32 off, median of 10). These time
-    yardsticks, not kernels of the port; a kernel row whose time beats its
-    bound at these rates fails (``_measured_bound``)."""
-    import statistics
+    writes next to nothing); and the f32 FMA rate (an 8192^3 f32 matmul
+    with TF32 off). These time yardsticks, not kernels of the port; a
+    kernel row whose time beats its bound at these rates fails
+    (``_measured_bound``).
 
+    A peak is the best the card shows, so each yardstick is timed as a
+    kernel row is (``_measure``): runs queued back to back behind an
+    untimed one, so that no launch gap or idle card falls inside the
+    events, and the fastest of ``PEAK_BATCHES`` such means is kept. Half a
+    second of copies first brings the card to its clocks under load."""
     import torch
 
-    def median_ms(fn, reps):
-        fn()
-        _sync()
+    def best_ms(fn, reps):
         ts = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        for _ in range(PEAK_BATCHES):
             fn()
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end))
-        return statistics.median(ts)
+            ts.append(_time_ms(fn, reps))
+        return min(ts)
 
     n = 1 << 30
     gen = torch.Generator(device="cuda").manual_seed(7)
     src = torch.empty(n, dtype=torch.float32, device="cuda").random_(
         0, 4, generator=gen)
     dst = torch.empty_like(src)
-    copy_ms = median_ms(lambda: dst.copy_(src), 12)
+    for _ in range(PEAK_WARM_COPIES):
+        dst.copy_(src)
+    copy_ms = best_ms(lambda: dst.copy_(src), 4)
     del dst
     torch.cuda.empty_cache()
     ones = torch.ones(1 << 16, device="cuda")
@@ -378,14 +405,14 @@ def phase_peaks() -> None:
     for w in (256, 4096, 1 << 16):
         reads[f"mv {w} wide"] = (
             lambda w=w: torch.mv(src.view(n // w, w), ones[:w]))
-    read_ms = {name: median_ms(fn, 12) for name, fn in reads.items()}
+    read_ms = {name: best_ms(fn, 4) for name, fn in reads.items()}
     del src, ones
     torch.cuda.empty_cache()
     assert not torch.backends.cuda.matmul.allow_tf32
     k = 8192
     a = torch.randn((k, k), generator=gen, device="cuda")
     b = torch.randn((k, k), generator=gen, device="cuda")
-    mm_ms = median_ms(lambda: a @ b, 10)
+    mm_ms = best_ms(lambda: a @ b, 3)
     del a, b
     torch.cuda.empty_cache()
     PEAKS["copy_bw"] = 2 * n * 4 / (copy_ms / 1e3)
@@ -3091,6 +3118,509 @@ def phase_gnn_full(g) -> tuple[dict, dict]:
     return counts, sweeps
 
 
+# ----------------------------------- (L) the LM and AutoInt models on the card
+LM_IDS = ("smollm-360m", "llama3-8b", "gemma3-1b", "deepseek-moe-16b",
+          "qwen3-moe-30b-a3b")
+# L3's serving shape: batch, prompt, prefill chunk (the reference's
+# default), decode steps; the cache holds the prompt and the steps
+LM_SERVE = dict(batch=8, prompt=2048, chunk=1024, steps=32)
+# L1: (label, arch id, layer stack, window flag, tokens a row); gemma3's
+# local block also at 640 tokens, where its 512-token window masks
+LM_BLOCKS = (("llama3-8b block", "llama3-8b", "layers", 1.0, 64),
+             ("gemma3-1b local block", "gemma3-1b", "layers", 0.0, 64),
+             ("gemma3-1b local block", "gemma3-1b", "layers", 0.0, 640),
+             ("gemma3-1b global block", "gemma3-1b", "layers", 1.0, 64),
+             ("deepseek-moe-16b dense-front block", "deepseek-moe-16b",
+              "dense_front", 1.0, 64),
+             ("deepseek-moe-16b MoE block", "deepseek-moe-16b", "layers",
+              1.0, 64),
+             ("qwen3-moe-30b-a3b MoE block (QK-norm)", "qwen3-moe-30b-a3b",
+              "layers", 1.0, 64))
+# L4: AutoInt's registered cells and the function each runs
+AUTOINT_CELLS = (("serve_p99", "forward"), ("serve_bulk", "forward"),
+                 ("retrieval_cand", "retrieval"), ("train_batch", "loss"))
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_on_both(arch_id: str):
+    """An LM at ``reduced_config`` (f32) drawn on the CPU from generator
+    seed 0, and its copy on the card. -> (cfg, {"cpu": m, "cuda": m})."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import build_lm
+    cfg = reduced_config(arch_id).model
+    cpu = build_lm(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    return cfg, {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+
+
+def phase_lm_parity() -> None:
+    """(L0): all five LMs and AutoInt at ``reduced_config`` in f32, card
+    against CPU from one set of parameters: ``lm_forward`` (full, and
+    blocked at 8-token chunks), ``lm_prefill_chunked`` then three
+    ``lm_decode_step``s with the cache, and AutoInt's forward, retrieval
+    scores and loss; ``rtol 1e-5`` of the largest magnitude."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import lm_token_stream, recsys_batch
+    from repro_torch.models import recsys, transformer as tf
+
+    with torch.no_grad():
+        for arch_id in LM_IDS:
+            cfg, models = _lm_on_both(arch_id)
+            toks = lm_token_stream(7, 2, 35, cfg.vocab_size, device="cpu")
+            runs = {}
+            for dev, model in models.items():
+                t = toks.to(dev)
+                full = tf.lm_forward(model, t[:, :32])[0]
+                blocked = tf.lm_forward(model, t[:, :32], q_chunk=8,
+                                        kv_chunk=8)[0]
+                cache = tf.init_decode_cache(cfg, 2, 36, torch.float32,
+                                             device=dev)
+                outs = [tf.lm_prefill_chunked(model, t[:, :32], cache,
+                                              chunk=8)[0]]
+                for i in range(3):
+                    outs.append(tf.lm_decode_step(
+                        model, cache, t[:, 32 + i:33 + i])[0])
+                runs[dev] = (full, blocked, outs, cache)
+            (f_c, b_c, o_c, c_c), (f_g, b_g, o_g, c_g) = runs["cpu"], \
+                runs["cuda"]
+            err = _close_to_largest(f"{arch_id} lm_forward", f_g, f_c, 1e-5)
+            _close_to_largest(f"{arch_id} blocked", b_g, b_c, 1e-5)
+            _close_to_largest(f"{arch_id} blocked vs full (card)", b_g, f_g,
+                              1e-5)
+            for i, (a, b) in enumerate(zip(o_g, o_c)):
+                err = max(err, _close_to_largest(
+                    f"{arch_id} serve step {i}", a, b, 1e-5))
+            for k in ("k", "v", "k_front", "v_front"):
+                _close_to_largest(f"{arch_id} cache {k}", c_g[k], c_c[k],
+                                  1e-5)
+            if not int(c_g["len"]) == int(c_c["len"]) == 35:
+                raise AssertionError(f"{arch_id}: cache len {c_g['len']}")
+            print(f"[lm] L0 {arch_id} reduced f32: forward, blocked, chunked "
+                  f"prefill and 3 decode steps card == CPU, max err "
+                  f"{err:.3e}", flush=True)
+        arch = reduced_config("autoint")
+        cpu = recsys.build_autoint(arch.model, device="cpu",
+                                   generator=torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to("cuda")
+        train = recsys_batch(arch, "smoke_train", 3, device="cpu")
+        ret = recsys_batch(arch, "smoke_retrieval", 4, device="cpu")
+        outs = {}
+        for dev, model in (("cpu", cpu), ("cuda", card)):
+            tb = {k: v.to(dev) for k, v in train.items()}
+            rb = {k: v.to(dev) for k, v in ret.items()}
+            outs[dev] = (recsys.autoint_forward(model, tb),
+                         recsys.retrieval_scores(model, rb, rb["candidates"],
+                                                 rb["retrieval_proj"]),
+                         recsys.autoint_loss(model, tb))
+        errs = [_close_to_largest(f"autoint {name}", g, c, 1e-5)
+                for name, g, c in zip(("forward", "retrieval", "loss"),
+                                      outs["cuda"], outs["cpu"])]
+        print(f"[lm] L0 autoint reduced f32: forward, retrieval scores, "
+              f"loss card == CPU, max err {max(errs):.3e}", flush=True)
+
+
+def _route_ids(block, x, cfg):
+    """The router's top-k ids of a MoE block on input ``x`` and, per token,
+    the gap between its k-th and (k+1)-th probabilities."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import route
+    h = x + L.attention(block.attn, L.rms_norm(block.ln1, x, cfg.norm_eps),
+                        **block._attn_kw())
+    hn = L.rms_norm(block.ln2, h, cfg.norm_eps).reshape(1, -1, cfg.d_model)
+    probs, _, ids = route(block.moe, hn, cfg.moe.top_k)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    k = cfg.moe.top_k
+    return ids[0], (top[0, :, k - 1] - top[0, :, k])
+
+
+def phase_lm_blocks() -> None:
+    """(L1): one block of each kind at its registered width, f32, on 2 x
+    64 tokens (gemma3's local block also on 2 x 640), drawn on the card
+    from generator seed 0 and copied to the CPU: card against CPU within
+    ``rtol 1e-5`` of the largest magnitude; MoE blocks route every token
+    to the same experts, but for a token whose k-th and (k+1)-th
+    probabilities lie within 1e-6 (printed, and left out of the output
+    comparison)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Block
+
+    dev = torch.device("cuda")
+    for label, arch_id, stack, flag, s in LM_BLOCKS:
+        cfg = dataclasses.replace(get_config(arch_id).model,
+                                  param_dtype=torch.float32)
+        moe = stack == "layers" and cfg.moe is not None
+        t0 = time.perf_counter()
+        block = Block(cfg, moe, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        host = copy.deepcopy(block).cpu()
+        x = torch.randn(2, s, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            out_g, aux_g = block(x.to(dev), flag)
+            out_c, aux_c = host(x, flag)
+            keep = torch.ones(2 * s, dtype=torch.bool)
+            note = ""
+            if moe:
+                ids_g, gap = _route_ids(block, x.to(dev), cfg)
+                ids_c, _ = _route_ids(host, x, cfg)
+                differ = (ids_g.cpu() != ids_c).any(-1)
+                tied = gap.cpu() < 1e-6
+                if (differ & ~tied).any():
+                    raise AssertionError(
+                        f"{label}: tokens {differ.nonzero().tolist()} route "
+                        f"to other experts on the card")
+                for t in differ.nonzero().flatten().tolist():
+                    print(f"[lm] L1 {label}: token {t} near-tied (gap "
+                          f"{gap[t].item():.2e}), routed "
+                          f"{ids_g[t].tolist()} on the card and "
+                          f"{ids_c[t].tolist()} on the CPU; left out",
+                          flush=True)
+                keep = ~differ
+                note = (f", top-{cfg.moe.top_k} ids equal for "
+                        f"{int(keep.sum())}/{2 * s} tokens")
+                if keep.all():
+                    _close_to_largest(f"{label} aux", aux_g, aux_c, 1e-5)
+        err = _close_to_largest(label, out_g.reshape(2 * s, -1)[keep.to(dev)],
+                                out_c.reshape(2 * s, -1)[keep], 1e-5)
+        params = sum(p.numel() for p in block.parameters())
+        print(f"[lm] L1 {label} x {s} tokens, f32, {params} parameters: "
+              f"card == CPU, max err {err:.3e}{note} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del block, host, out_g
+        _free()
+
+
+def phase_lm_consistency() -> None:
+    """(L2): ``tests/test_chunked_prefill.py``'s checks at full width on
+    the card, f32, 2 x 2048 tokens, chunk 512: chunked-prefill logits
+    against ``lm_forward``'s last chunk (``2e-4`` of the largest
+    magnitude), and the decode hand-off against ``lm_forward`` of the
+    prompt plus the token (``2e-3``), for smollm-360m, gemma3-1b and
+    llama3-8b (32 GB of f32 parameters)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    b, s, chunk = 2, 2048, 512
+    for arch_id in ("smollm-360m", "gemma3-1b", "llama3-8b"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch_id).model,
+                                  param_dtype=torch.float32)
+        model = tf.build_lm(cfg, device=dev)
+        toks = lm_token_stream(11, b, s + 1, cfg.vocab_size, device=dev)
+        with torch.inference_mode():
+            full = tf.lm_forward(model, toks[:, :s])[0][:, -chunk:].clone()
+            cache = tf.init_decode_cache(cfg, b, s + 4, torch.float32,
+                                         device=dev)
+            out, cache = tf.lm_prefill_chunked(model, toks[:, :s], cache,
+                                               chunk=chunk)
+            e1 = _close_to_largest(f"{arch_id} chunked prefill", out, full,
+                                   2e-4, atol=0.0)
+            del full, out
+            dec, cache = tf.lm_decode_step(model, cache, toks[:, s:])
+            want = tf.lm_forward(model, toks)[0][:, -1:]
+            e2 = _close_to_largest(f"{arch_id} decode hand-off", dec, want,
+                                   2e-3, atol=0.0)
+            if int(cache["len"]) != s + 1:
+                raise AssertionError(f"{arch_id}: cache len {cache['len']}")
+        print(f"[lm] L2 {arch_id} f32 {b}x{s} chunk {chunk}: chunked "
+              f"prefill vs lm_forward max err {e1:.3e}, decode hand-off "
+              f"{e2:.3e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        del model, cache, dec, want
+        _free()
+
+
+def lm_serve_bytes(model, batch: int, prompt: int, chunk: int,
+                   s_max: int) -> dict:
+    """The analytic terms of a serving run's peak: the parameters as
+    built, the cache (bf16), the last chunk's logits (f32, beside the
+    bf16 product they are cast from), and one layer's attention scores
+    at the last chunk (f32 masked logits beside their f32 softmax and the
+    bf16 probabilities)."""
+    cfg = model.cfg
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = 2 * cfg.n_layers * batch * s_max * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    logits = batch * chunk * cfg.vocab_size * (4 + 2)
+    scores = batch * cfg.n_heads * chunk * prompt * (4 + 4 + 2)
+    return {"params": params, "cache": cache, "logits": logits,
+            "scores": scores, "model": params + cache + max(logits, scores)}
+
+
+def phase_lm_serving() -> dict:
+    """(L3): each LM at its registered width and depth in bf16,
+    parameters drawn on the card: a batch of 8 prompts of 2,048
+    tokens through ``lm_prefill_chunked`` (chunk 1024) into a 2,080-row
+    cache, then 32 greedy ``lm_decode_step``s (the first profiled, 31
+    timed); llama3-8b also ``lm_prefill`` at 1 x 4096 (blocked attention).
+    The MoE models' chunked prefill (2 x 2048, chunk 512) correlates with
+    ``lm_forward`` (> 0.8, ``tests/test_chunked_prefill.py``'s check). One
+    prefill chunk of llama3-8b and deepseek-moe-16b is profiled too.
+    Returns the kernels' launches over the serving runs (none is due)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    b, s, chunk, steps = (LM_SERVE[k] for k in ("batch", "prompt", "chunk",
+                                                 "steps"))
+    s_max = s + steps
+    _reset_counts()
+    for seed, arch_id in enumerate(LM_IDS):
+        cfg = get_config(arch_id).model
+        t0 = time.perf_counter()
+        model = tf.build_lm(cfg, device=dev)
+        _sync()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        terms = lm_serve_bytes(model, b, s, chunk, s_max)
+        prompt = lm_token_stream(seed, b, s, cfg.vocab_size, device=dev)
+        cache = tf.init_decode_cache(cfg, b, s_max, device=dev)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, cache = tf.lm_prefill_chunked(model, prompt, cache,
+                                                  chunk=chunk)
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            _sync()
+            prefill_s = time.perf_counter() - t0
+            # the peak before the check below, whose own temporaries
+            # (``isfinite``'s f32 ``abs`` and masks) are not serving's
+            peak = torch.cuda.max_memory_allocated()
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{arch_id}: non-finite prefill logits")
+            del logits
+            torch.cuda.reset_peak_memory_stats()
+            profiled = arch_id in ("llama3-8b", "deepseek-moe-16b")
+            first = [tok]
+
+            def step():
+                lg, _ = tf.lm_decode_step(model, cache, first[0])
+                first[0] = lg[:, -1:].argmax(-1).to(torch.int32)
+            if profiled:
+                _profile(f"{arch_id} one decode step (batch {b}, cache "
+                         f"{s_max})", step)
+            else:
+                step()
+            tok = first[0]
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(steps - 1):
+                lg, cache = tf.lm_decode_step(model, cache, tok)
+                tok = lg[:, -1:].argmax(-1).to(torch.int32)
+            _sync()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+            if int(cache["len"]) != s_max or not torch.isfinite(lg).all():
+                raise AssertionError(f"{arch_id}: decode ended at "
+                                     f"{int(cache['len'])}")
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if profiled:
+                _profile(f"{arch_id} the first prefill chunk ({b} x "
+                         f"{chunk})",
+                         lambda: tf.lm_prefill_chunked(
+                             model, prompt[:, :chunk], cache, chunk=chunk))
+            del lg, cache, prompt
+            print(f"[lm] L3 {arch_id} bf16 {cfg.n_layers} layers "
+                  f"d_model {cfg.d_model} vocab {cfg.vocab_size}: build "
+                  f"{build_s:.2f} s; prefill {b}x{s} chunk {chunk}: "
+                  f"{prefill_s:.3f} s, {b * s / prefill_s:.0f} tokens/s; "
+                  f"decode {decode_ms:.2f} ms a step at batch {b} "
+                  f"({b * 1e3 / decode_ms:.0f} tokens/s); peak {peak} B "
+                  f"against the model {terms['model']} B "
+                  f"({(peak - terms['model']) / terms['model']:+.3f}): "
+                  f"params {terms['params']} + cache {terms['cache']} + "
+                  f"max(last-chunk logits {terms['logits']}, attention "
+                  f"scores {terms['scores']})", flush=True)
+            if arch_id == "llama3-8b":
+                toks = lm_token_stream(99, 1, 4096, cfg.vocab_size,
+                                       device=dev)
+                _sync()
+                t0 = time.perf_counter()
+                out = tf.lm_prefill(model, toks)
+                _sync()
+                sec = time.perf_counter() - t0
+                if not torch.isfinite(out).all():
+                    raise AssertionError("llama3-8b lm_prefill: non-finite")
+                print(f"[lm] L3 llama3-8b lm_prefill 1x4096 (blocked "
+                      f"attention, 1024-token blocks): {sec:.3f} s, "
+                      f"{4096 / sec:.0f} tokens/s", flush=True)
+                del out, toks
+            if cfg.moe is not None:
+                toks = lm_token_stream(50 + seed, 2, 2048, cfg.vocab_size,
+                                       device=dev)
+                full = tf.lm_forward(model, toks)[0][:, -512:]
+                c2 = tf.init_decode_cache(cfg, 2, 2052, device=dev)
+                out, c2 = tf.lm_prefill_chunked(model, toks, c2, chunk=512)
+                corr = float(np.corrcoef(full.float().cpu().numpy().ravel(),
+                                         out.float().cpu().numpy().ravel()
+                                         )[0, 1])
+                if not corr > 0.8 or int(c2["len"]) != 2048:
+                    raise AssertionError(f"{arch_id}: chunked prefill "
+                                         f"correlation {corr}")
+                print(f"[lm] L2 {arch_id} bf16 2x2048 chunk 512: chunked "
+                      f"prefill against lm_forward's last chunk, "
+                      f"correlation {corr:.5f} (> 0.8)", flush=True)
+                del full, out, c2, toks
+        del model
+        _free()
+    return _read_counts()
+
+
+def autoint_act_bytes(cfg, batch: int) -> int:
+    """The analytic activations of an AutoInt forward at its widest: the
+    gathered rows (single fields and bag rows) beside the field embeddings,
+    or the second interacting layer at its logits product. There eight
+    (B, F, d_attn) f32 tensors are live (the first layer's input, held by
+    ``user_embedding``; this layer's input; its q, k and v; the first
+    layer's attention output, held until ``att`` is bound again; and
+    ``einsum``'s contiguous copies of q and k) beside three (B, H, F, F)
+    (the first layer's scaled logits and softmax, held until bound again,
+    and the new logits). ``autoint_live_at_peak`` lists the live blocks
+    that back this count."""
+    f = cfg.n_sparse + 1
+    gather = batch * (cfg.n_sparse + cfg.bag_fields * cfg.bag_size
+                      + 2 * f) * cfg.embed_dim * 4
+    layer = batch * (8 * f * cfg.d_attn + 3 * cfg.n_heads * f * f) * 4
+    return max(gather, layer)
+
+
+def autoint_live_at_peak(fn, cfg, batch: int) -> int:
+    """Run ``fn`` once under the CUDA allocator's history, replay the
+    trace to its highest point and print the blocks live there, each by
+    its size class and the line of ``recsys.py`` that allocated it.
+    -> the bytes live at that point beyond those live before ``fn``."""
+    import collections
+
+    import torch
+
+    f = cfg.n_sparse + 1
+    kinds = {batch * f * cfg.d_attn * 4: "(B,F,d_attn) f32",
+             batch * cfg.n_heads * f * f * 4: "(B,H,F,F) f32"}
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python",
+        max_entries=100_000)
+    try:
+        out = fn()
+        _sync()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del out
+    live, cur, top, at_top = {}, 0, 0, {}
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > top:
+                top, at_top = cur, dict(live)
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+
+    def where(ev):
+        for fr in ev.get("frames", ()):
+            if fr["filename"].endswith("recsys.py"):
+                return f"recsys.py:{fr['line']} {fr['name']}"
+        return "elsewhere"
+    groups = collections.Counter(
+        (kinds.get(ev["size"], f"{ev['size']} B"), where(ev))
+        for ev in at_top.values())
+    print(f"[lm] L4 autoint batch {batch}: {len(at_top)} blocks, {top} B "
+          f"live at the forward's peak:", flush=True)
+    for (kind, line), n in sorted(groups.items(), key=lambda kv: kv[0][1]):
+        print(f"[lm]   {n} x {kind} from {line}", flush=True)
+    return top
+
+
+def phase_autoint_cells() -> dict:
+    """(L4): AutoInt at its registered width and cells in f32 (tables
+    39 x 1,000,000 x 16 on the card): ``serve_p99`` (512), ``serve_bulk``
+    (262,144), ``retrieval_cand`` (1 query x 1,048,576 candidates x 64)
+    and ``train_batch`` (65,536, forward and loss). ms a batch by CUDA
+    events after one untimed call, and the peak beside parameters +
+    batch + activations. Returns the kernels' launches (none is due)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models import recsys
+
+    dev = torch.device("cuda")
+    arch = get_config("autoint")
+    cfg = arch.model
+    _reset_counts()
+    model = recsys.build_autoint(cfg, device=dev)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    for seed, (cell, kind) in enumerate(AUTOINT_CELLS):
+        batch = recsys_batch(arch, cell, seed, device=dev)
+        b = batch["dense"].shape[0]
+        fn = {"forward": lambda: recsys.autoint_forward(model, batch),
+              "loss": lambda: recsys.autoint_loss(model, batch),
+              "retrieval": lambda: recsys.retrieval_scores(
+                  model, batch, batch["candidates"],
+                  batch["retrieval_proj"])}[kind]
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            _sync()
+            peak = torch.cuda.max_memory_allocated()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"autoint {cell}: non-finite output")
+            shape = tuple(out.shape)
+            del out
+            reps = 20 if b <= 65_536 else 5
+            ms = _time_ms(fn, reps)
+        batch_bytes = sum(v.numel() * v.element_size()
+                          for v in batch.values())
+        act = autoint_act_bytes(cfg, b)
+        if cell == "serve_bulk":
+            with torch.inference_mode():
+                listed = autoint_live_at_peak(fn, cfg, b)
+            print(f"[lm] L4 autoint serve_bulk: {listed} B listed against "
+                  f"the analytic activations {act} B "
+                  f"({(listed - act) / act:+.4f})", flush=True)
+        if kind == "retrieval":
+            act += b * batch["candidates"].shape[0] * 4
+        model_b = params + batch_bytes + act
+        print(f"[lm] L4 autoint {cell} ({kind}, batch {b}, output "
+              f"{shape}): {ms:.3f} ms a batch ({b / ms * 1e3:.0f} rows/s); "
+              f"peak {peak} B against params {params} + batch "
+              f"{batch_bytes} + activations {act} = {model_b} B "
+              f"({(peak - model_b) / model_b:+.3f})", flush=True)
+        del batch
+    del model
+    _free()
+    return _read_counts()
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -3190,6 +3720,18 @@ def main() -> int:
     by_path["gnn_motif_mesh"], gnn_sweeps = phase_gnn_full(g)
     sweeps.update(gnn_sweeps)
     print(f"[gnn] phase (G) took {time.perf_counter() - t_gnn:.1f} s",
+          flush=True)
+    t_lm = time.perf_counter()
+    phase_lm_parity()
+    phase_lm_blocks()
+    phase_lm_consistency()
+    by_path["lm_serve"] = phase_lm_serving()
+    by_path["autoint_cells"] = phase_autoint_cells()
+    for path in ("lm_serve", "autoint_cells"):
+        if any(by_path[path].values()):
+            raise AssertionError(f"{path} launched a counting kernel: "
+                                 f"{by_path[path]}")
+    print(f"[lm] phase (L) took {time.perf_counter() - t_lm:.1f} s",
           flush=True)
     # each kernel's numbers at the f32 shapes of the path it was added
     # for; its launches are those of that path's full run

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``configs/__init__.py``: the 10 assigned
 architectures, their shape cells, and the reduced same-family configs of
-the smoke tests. The GNN models (``repro_torch.models``) run from these
-configs; the LM and recsys configs are data until their models are
-ported (``ROADMAP.md``).
+the smoke tests. Every model runs from these configs
+(``repro_torch.models``): the GNNs (``build_gnn``, ``build_nequip``), the
+five LMs (``build_lm``) and AutoInt (``build_autoint``).
 """
 
 from __future__ import annotations

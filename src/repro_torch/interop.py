@@ -14,9 +14,14 @@ The reference's models hand over their parameter pytree as numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``): nested dicts and lists
 whose paths are the port modules' parameter names (``layers.0.nbr.w`` is
 ``params["layers"][0]["nbr"]["w"]``; the port's ``self_`` is the
-reference's ``self``). :func:`gnn_from_params` and
-:func:`nequip_from_params` build the port's module on those weights,
-:func:`params_to_arrays` gives them back in the reference's layout, and
+reference's ``self``). An LM's scanned ``layers`` are stacked along a
+leading axis in the reference and a list of blocks in the port: they are
+unstacked on the way in and restacked on the way out.
+:func:`gnn_from_params`, :func:`nequip_from_params`,
+:func:`lm_from_params` and :func:`autoint_from_params` build the port's
+module on those weights, :func:`params_to_arrays` gives them back in the
+reference's layout, :func:`decode_cache_from_arrays` and
+:func:`decode_cache_to_arrays` carry an LM decode cache, and
 :func:`adamw_state_from_arrays` loads the reference's AdamW state
 (``{"mu", "nu", "step"}``) into the port's :class:`AdamW`.
 """
@@ -32,10 +37,14 @@ from repro_torch.graph.structure import Graph
 from repro_torch.kernels.spmm import ops as spmm_ops
 from repro_torch.models.equivariant import build_nequip
 from repro_torch.models.gnn import build_gnn
+from repro_torch.models.recsys import build_autoint
+from repro_torch.models.transformer import LM, build_lm
 
 __all__ = ["graph_from_arrays", "bsr_from_arrays", "splits_from_arrays",
            "engine_from_state", "gnn_from_params", "nequip_from_params",
-           "params_to_arrays", "adamw_state_from_arrays"]
+           "lm_from_params", "autoint_from_params", "params_to_arrays",
+           "decode_cache_from_arrays", "decode_cache_to_arrays",
+           "adamw_state_from_arrays"]
 
 
 def graph_from_arrays(n: int, indptr, indices) -> Graph:
@@ -159,9 +168,73 @@ def nequip_from_params(cfg, params, *, device=None):
     return _load(build_nequip(cfg, n_species, device=device), params)
 
 
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _unstack(tree) -> list:
+    """A pytree of arrays stacked along axis 0 -> a list of pytrees."""
+    n = {_lookup(tree, p).shape[0] for p in _leaf_paths(tree)}
+    if len(n) != 1:
+        raise ValueError(f"stacked layer leaves disagree on depth: {n}")
+    return [_map_leaves(lambda a, i=i: np.asarray(a)[i], tree)
+            for i in range(n.pop())]
+
+
+def _stack(trees: list):
+    """The inverse of :func:`_unstack`."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def lm_from_params(cfg, params, *, device=None) -> LM:
+    """The port's :class:`~repro_torch.models.transformer.LM` of ``cfg``
+    holding the reference's ``init_lm`` parameters ``params`` (numpy
+    leaves), its stacked ``layers`` unstacked into the block list."""
+    layers = params["layers"]
+    carried = dict(params, layers=_unstack(layers) if layers else [])
+    return _load(build_lm(cfg, device=device), carried)
+
+
+def autoint_from_params(cfg, params, *, device=None):
+    """The port's :class:`~repro_torch.models.recsys.AutoInt` of ``cfg``
+    holding the reference's ``init_autoint`` parameters."""
+    return _load(build_autoint(cfg, device=device), params)
+
+
+def decode_cache_from_arrays(cache: dict, *, device=None) -> dict:
+    """The reference's decode cache (numpy ``k``, ``v``, ``k_front``,
+    ``v_front``, ``len``) as the port's, on ``device``; bfloat16 arrays
+    stay bfloat16."""
+    dev = resolve_device(device)
+    out = {}
+    for key, a in cache.items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        out[key] = t.to(dev)
+    out["len"] = out["len"].to(torch.int32)
+    return out
+
+
+def decode_cache_to_arrays(cache: dict) -> dict:
+    """The port's decode cache as numpy arrays (bfloat16 as float32)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+            for k, v in cache.items()}
+
+
 def params_to_arrays(module) -> dict:
     """``module``'s parameters as the reference's pytree of numpy arrays
-    (bfloat16 ones as float32)."""
+    (bfloat16 ones as float32); an LM's ``layers`` stacked along axis 0
+    and its ``dense_front`` a list, empty where it has none."""
     root: dict = {}
     for name, p in module.named_parameters():
         *head, last = _ref_path(name)
@@ -177,7 +250,11 @@ def params_to_arrays(module) -> dict:
         if node and all(isinstance(k, int) for k in node):
             return [lists(node[i]) for i in range(len(node))]
         return {k: lists(v) for k, v in node.items()}
-    return lists(root)
+    tree = lists(root)
+    if isinstance(module, LM):
+        tree["layers"] = _stack(tree["layers"]) if len(module.layers) else {}
+        tree.setdefault("dense_front", [])
+    return tree
 
 
 def adamw_state_from_arrays(opt, state: dict) -> None:

@@ -177,6 +177,11 @@ class NequIP(nn.Module):
         src, dst = batch["edge_index"]
         n, c = pos.shape[0], self.cfg.d_hidden
         rel = pos.index_select(0, src) - pos.index_select(0, dst)   # (E, 3)
+        # a self-loop's rel is zero whatever the positions, so it has no
+        # gradient; left in the graph, r_hat's 1/eps scale sends +g and -g
+        # to one atom, whose f32 sum keeps rounding noise as large as the
+        # forces themselves (the reference's forces there are that noise)
+        rel = torch.where((src == dst)[:, None], rel.detach(), rel)
         # eps goes into each component before the norm, as the reference's
         dist = torch.linalg.norm(rel + _EPS, dim=-1)
         r_hat = rel / torch.clamp(dist, min=_EPS)[:, None]

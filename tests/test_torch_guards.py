@@ -19,7 +19,8 @@ from repro_torch.core.distributed import coloring_for_seed
 from repro_torch.core.engines import CountingEngine
 from repro_torch.configs import reduced_config
 from repro_torch.core.templates import get_template
-from repro_torch.data.synthetic import gnn_batch
+from repro_torch.data.synthetic import (gnn_batch, lm_batch, lm_token_stream,
+                                        recsys_batch)
 from repro_torch.device import resolve_device
 from repro_torch.graph.coloring import batch_colorings, iteration_key
 from repro_torch.graph.generators import grid_2d
@@ -27,6 +28,8 @@ from repro_torch.kernels.fused.ops import fused_fits_smem
 from repro_torch.kernels.spmm import ops as spmm_ops
 from repro_torch.models.equivariant import build_nequip
 from repro_torch.models.gnn import build_gnn
+from repro_torch.models.recsys import build_autoint
+from repro_torch.models.transformer import build_lm, init_decode_cache
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -56,6 +59,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.interop, "
             "repro_torch.configs, repro_torch.models.gnn, "
             "repro_torch.models.equivariant, repro_torch.optim.optimizer, "
+            "repro_torch.models.transformer, repro_torch.models.recsys, "
             "repro_torch.data.synthetic, repro_torch.graph, "
             "repro_torch.obs; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
@@ -123,6 +127,28 @@ ENTRY_POINTS = {
         reduced_config("nequip").model, interop.params_to_arrays(
             build_nequip(reduced_config("nequip").model, device="cpu")),
         **kw),
+    "build_lm": lambda **kw: build_lm(
+        reduced_config("deepseek-moe-16b").model, **kw),
+    "build_autoint": lambda **kw: build_autoint(
+        reduced_config("autoint").model, **kw),
+    "lm_batch": lambda **kw: lm_batch(reduced_config("gemma3-1b"),
+                                      "smoke_decode", 0, **kw),
+    "recsys_batch": lambda **kw: recsys_batch(reduced_config("autoint"),
+                                              "smoke_retrieval", 0, **kw),
+    "lm_token_stream": lambda **kw: lm_token_stream(0, 2, 4, 10, **kw),
+    "init_decode_cache": lambda **kw: init_decode_cache(
+        reduced_config("llama3-8b").model, 1, 4, **kw),
+    "lm_from_params": lambda **kw: interop.lm_from_params(
+        reduced_config("qwen3-moe-30b-a3b").model, interop.params_to_arrays(
+            build_lm(reduced_config("qwen3-moe-30b-a3b").model,
+                     device="cpu")), **kw),
+    "autoint_from_params": lambda **kw: interop.autoint_from_params(
+        reduced_config("autoint").model, interop.params_to_arrays(
+            build_autoint(reduced_config("autoint").model, device="cpu")),
+        **kw),
+    "decode_cache_from_arrays": lambda **kw: interop.decode_cache_from_arrays(
+        interop.decode_cache_to_arrays(init_decode_cache(
+            reduced_config("smollm-360m").model, 1, 4, device="cpu")), **kw),
 }
 
 
@@ -167,6 +193,11 @@ def test_new_modules_are_scanned():
             "src/repro_torch/models/equivariant.py",
             "src/repro_torch/optim/optimizer.py",
             "src/repro_torch/data/synthetic.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/recsys.py",
+            "examples/serve_lm_torch.py",
             "examples/gnn_motif_features_torch.py",
             "examples/quickstart_torch.py",
             "examples/distributed_counting_torch.py"} <= names
