@@ -2,7 +2,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built at first use from
-``src/repro_torch/csrc``) and nothing of JAX. It drives sixteen paths of
+``src/repro_torch/csrc``) and nothing of JAX. It drives seventeen paths of
 the port, each with every kernel's launch counter set to 0 just before it
 and read just after:
 
@@ -106,7 +106,20 @@ and read just after:
   into a 2,080-row cache, then 32 greedy decode steps, llama3-8b also
   ``lm_prefill`` at 1 x 4096; (L4) AutoInt at its registered cells in f32
   (``serve_p99``, ``serve_bulk``, ``retrieval_cand``, ``train_batch``
-  forward and loss).
+  forward and loss);
+* **(T) training** (torch's own ops; no counting kernel may launch): (T0)
+  every registered architecture at ``reduced_config``, card against CPU
+  from one CPU-drawn train state: one ``build_train_step`` step (loss,
+  ``grad_norm``, ``lr``, parameters and moments, ``rtol 1e-5`` of the
+  largest magnitude), five (``1e-4``), and 2 microbatches for smollm-360m
+  and AutoInt; (T1) smollm-360m at its registered widths and depth in
+  bf16 with remat on ``train_4k`` cut to 16 sequences, 8 microbatches:
+  s/step, tokens/s, model TFLOP/s, the peak beside the analytic count, a
+  checkpoint (4.09 GB, several shard files) restored bit for bit and
+  continued within ``1e-4``; (T2) AutoInt at ``train_batch`` (65,536);
+  (T3) ``launch.train.main`` stopped at step 6 and resumed to 10, and its
+  GNN and recsys runs; (T4) ``build_ddp_step`` under NCCL at world size 1
+  against a gloo group of 1 on the CPU, and T1's model's DDP steps.
 
 In order it prints:
 
@@ -178,7 +191,13 @@ In order it prints:
     step and one prefill chunk of llama3-8b and deepseek-moe-16b under
     ``torch.profiler``; for AutoInt each cell's ms a batch and peak
     beside parameters + batch + activations;
-11. the script's total seconds, one JSON line with every kernel's
+11. (T)'s ``[train]`` lines: T0's largest errors and losses; T1's s/step,
+    tokens/s, model TFLOP/s beside a bf16 matmul's measured rate, the peak
+    beside ``lm_train_bytes``, the checkpoint's shard files, bytes, write
+    and read seconds, the resumed steps' errors, and one step under
+    ``torch.profiler``; T2's s/step and peak beside its count; T3's
+    resumed loss; T4's errors and s/step with the all-reduce payload;
+12. the script's total seconds, one JSON line with every kernel's
     numbers, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line; without a card
@@ -1727,13 +1746,15 @@ def phase_gather_full(g) -> tuple[dict, int, dict, dict]:
             dict(est, s_per_coloring=secs / 8))
 
 
-def _profile(label: str, fn) -> None:
+def _profile(label: str, fn, cpu: bool = True) -> None:
     """Run ``fn`` under ``torch.profiler``: the host wall time, the device's
     busy time (the union of kernel intervals) and idle share, device time
     and launches by kernel, the largest first, and where the host waits:
     its CUDA runtime calls by time and the allocator's retries (a
     ``cudaMalloc`` that failed, so every cached block was freed and the
-    device synced)."""
+    device synced). ``cpu=False`` records the device's activity alone: a
+    run of ~10^5 launches otherwise takes minutes to parse its operator
+    events."""
     import collections
 
     import torch
@@ -1741,8 +1762,8 @@ def _profile(label: str, fn) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         _sync()
@@ -3621,6 +3642,516 @@ def phase_autoint_cells() -> dict:
     return _read_counts()
 
 
+# ------------------------------------------------------------ (T) training
+TRAIN_T1 = dict(batch=16, microbatches=8)        # train_4k: 256 cut to 16
+TRAIN_T1_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=8)
+TRAIN_MB = ("smollm-360m", "autoint")            # microbatches 2 in T0
+
+
+def _state_copy(arch, state, d_in, device):
+    """A train state's copy on ``device``, bit for bit."""
+    from repro_torch import interop
+    return interop.train_state_from_arrays(
+        arch, interop.train_state_to_arrays(state), d_in, device=device)
+
+
+def _state_errors(label: str, got, want, rtol: float, *,
+                  one_step: bool = False) -> float:
+    """Every leaf of two train states within ``rtol`` of the leaf's
+    largest magnitude (``_close_to_largest``), the step equal.
+    ``one_step``: the int8-compressed DDP's moments within ``2 / 127`` and
+    its residuals within one quantization step, under 1% of the elements
+    a step apart (an element whose ``(g + r) / scale`` the two devices'
+    rounding puts on either side of a rounding boundary sums one step
+    apart, until error feedback gives it back). -> the largest error
+    relative to its leaf's largest magnitude."""
+    from repro_torch.train.step import state_leaves
+    a, b = state_leaves(got), state_leaves(want)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        raise AssertionError(f"{label}: the states' leaves differ")
+    worst = 0.0
+    for (path, ga), (_, gb) in zip(a, b):
+        y = gb().detach()
+        x = ga().detach().to(y.device)     # on the reference's device
+        name = f"{label} {'/'.join(map(str, path))}"
+        if path == ("opt", "step"):
+            if int(x) != int(y):
+                raise AssertionError(f"{name}: {int(x)} against {int(y)}")
+            continue
+        if not y.numel():
+            continue
+        d = (x.double() - y.double()).abs()
+        err, scale = d.max().item(), y.double().abs().max().item()
+        if one_step and path[0] == "residual":
+            if err > 1.01 * 2 * scale or \
+                    (d > scale / 2).double().mean().item() >= 0.01:
+                raise AssertionError(f"{name}: more than one step apart")
+            continue
+        tol = 2 / 127 if one_step and path[0] == "opt" else rtol
+        if not err <= 1e-6 + tol * scale:
+            raise AssertionError(f"{name}: {err!r} over 1e-06 + {tol} * "
+                                 f"{scale!r}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def phase_train_parity() -> None:
+    """(T0): every registered architecture at ``reduced_config``, card
+    against CPU from one CPU-drawn train state and the same batches
+    (``build_train_step``, the reference's default AdamW): one step (the
+    loss, ``grad_norm``, ``lr``, every parameter and moment within ``rtol
+    1e-5`` of its largest magnitude), then five (``1e-4``); and one step
+    of 2 microbatches for smollm-360m and AutoInt. (A GNN batch splits
+    into microbatches in neither package: both split the ``(2, E)`` edge
+    list's leading dim.)"""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, reduced_config
+    from repro_torch.data.synthetic import make_batch, statics_for
+    from repro_torch.train.step import build_train_step, concrete_train_state
+
+    for arch_id in ARCH_IDS:
+        arch = reduced_config(arch_id)
+        cell = next(c for c in arch.cells if c.kind == "train")
+        d_in = cell.dims.get("d_feat")
+        statics = statics_for(arch, cell.name)
+        cases = [(1, 5)] + ([(2, 1)] if arch_id in TRAIN_MB else [])
+        for microbatches, steps in cases:
+            cpu = concrete_train_state(arch, 0, d_in, device="cpu")
+            card = _state_copy(arch, cpu, d_in, "cuda")
+            fn = build_train_step(arch, statics=statics,
+                                  microbatches=microbatches)
+            errs, losses = [], []
+            for i in range(steps):
+                batch = make_batch(arch, cell.name, i, device="cpu")
+                cpu, want = fn(cpu, batch)
+                card, got = fn(card, {k: v.cuda() for k, v in batch.items()})
+                rtol = 1e-5 if i == 0 else 1e-4
+                for k in ("loss", "grad_norm", "lr"):
+                    _close_to_largest(f"T0 {arch_id} step {i} {k}", got[k],
+                                      want[k], rtol)
+                losses.append(float(got["loss"]))
+                if i == 0:
+                    errs.append(_state_errors(f"T0 {arch_id} step 1", card,
+                                              cpu, 1e-5))
+            if steps > 1:
+                errs.append(_state_errors(f"T0 {arch_id} step {steps}",
+                                          card, cpu, 1e-4))
+            print(f"[train] T0 {arch_id} {cell.name} microbatches="
+                  f"{microbatches}: card against CPU, largest leaf error "
+                  f"{errs} of its largest magnitude over {steps} step(s); "
+                  f"losses {losses}", flush=True)
+            del cpu, card
+    _free()
+
+
+def lm_train_bytes(cfg, n_params: int, b_mb: int, s: int,
+                   q_chunk: int = 1024) -> dict:
+    """The analytic peak of a remat LM train step of ``b_mb``-sequence
+    microbatches, from the code: the state (bf16 parameters, f32
+    accumulators, f32 ``mu``/``nu``) and one microbatch's bf16 gradients
+    (``torch.autograd.grad`` returns them together); remat's block inputs
+    (one ``(b, s, d)`` a block); and the larger of the head and one
+    block's recompute. The head peaks in ``lm_loss``'s backward with four
+    f32 ``(b, s, V)`` tensors live (the logits, which ``logsumexp`` and
+    the target gather keep; ``logsumexp``'s backward exponential and its
+    product with the incoming gradient; the gather's scattered gradient)
+    and the bf16 gradient of ``x @ lm_head``. One block's recompute keeps,
+    per causal (q, kv) chunk pair of the blocked attention, the f32 logits
+    and probabilities."""
+    item = 2 if cfg.param_dtype.itemsize == 2 else 4
+    state = n_params * (item + 4 + 8) + n_params * item
+    remat = cfg.n_layers * b_mb * s * cfg.d_model * item
+    head = b_mb * s * cfg.vocab_size * (4 * 4 + item)
+    nq = -(-s // q_chunk)
+    pairs = nq * (nq + 1) // 2
+    block = pairs * 2 * b_mb * cfg.n_heads * q_chunk * q_chunk * 4
+    return {"state": state, "remat_inputs": remat, "head": head,
+            "block_recompute": block,
+            "total": state + remat + max(head, block)}
+
+
+def _bf16_matmul_tflops() -> float:
+    """A bf16 ``torch.matmul`` at 8192^3 on this card, TFLOP/s."""
+    import torch
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    _time_ms(lambda: a @ b, 5)
+    ms = _time_ms(lambda: a @ b, 20)
+    del a, b
+    return 2 * 8192 ** 3 / (ms * 1e-3) / 1e12
+
+
+def phase_train_lm_full() -> tuple:
+    """(T1): smollm-360m at its registered widths and depth (32 layers, d
+    960, 15/5 heads, d_ff 2,560, vocab 49,152, bf16 parameters, remat),
+    ``train_4k`` (seq 4,096) with the batch cut from 256 to 16, 8
+    microbatches of 2: one untimed step, five timed (s/step, tokens/s,
+    model TFLOP/s from ``model_flops`` and its share of a bf16 matmul's
+    rate measured here), the peak beside ``lm_train_bytes``; a checkpoint
+    after step 3 (4.09 GB of parameters and moments, several shard files)
+    restored into a fresh state bit for bit, whose steps 4-5 match the
+    uninterrupted run within ``1e-4``; one step profiled. -> (the model,
+    its arch with the cut cell, seconds a step)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.step import (build_train_step,
+                                        concrete_train_state, state_leaves)
+
+    full = get_config("smollm-360m")
+    cut = ShapeCell("train_4k", "train", {"seq": 4096,
+                                          "batch": TRAIN_T1["batch"]})
+    arch = dataclasses.replace(full, cells=(cut,) + tuple(
+        c for c in full.cells if c.name != "train_4k"))
+    cfg = arch.model
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.param_dtype, cfg.remat) != (
+            32, 960, 15, 5, 2560, 49152, torch.bfloat16, True):
+        raise AssertionError(f"smollm-360m is not at its registered width: "
+                             f"{cfg}")
+    mb = TRAIN_T1["microbatches"]
+    _free()
+    state = concrete_train_state(arch, 0, device="cuda")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    if n_params != 409_007_040:
+        raise AssertionError(f"smollm-360m has {n_params} parameters")
+    step = build_train_step(arch, AdamWConfig(**TRAIN_T1_OPT),
+                            microbatches=mb)
+    batches = [make_batch(arch, "train_4k", 100 + i, device="cuda")
+               for i in range(6)]
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def run(st, i):
+        st, m = step(st, batches[i])
+        losses.append(float(m["loss"]))
+        return m
+
+    t_first = time.perf_counter()
+    run(state, 0)                                   # untimed
+    _sync()
+    t_first = time.perf_counter() - t_first
+    t0 = time.perf_counter()
+    for i in (1, 2, 3):
+        run(state, i)
+    _sync()
+    timed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t_round = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, 4, state, extras={"step": 4})
+        write_s = time.perf_counter() - t0
+        files = sorted(f for f in os.listdir(path) if f.endswith(".npz"))
+        on_disk = sum(os.path.getsize(os.path.join(path, f)) for f in files)
+        fresh = concrete_train_state(arch, 1, device="cuda")
+        _sync()
+        t0 = time.perf_counter()
+        restore_checkpoint(tmp, fresh)
+        _sync()
+        read_s = time.perf_counter() - t0
+        for (p, a), (_, b) in zip(state_leaves(fresh), state_leaves(state)):
+            x, y = a(), b()
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"T1 restored leaf {p} differs")
+        _sync()
+        t0 = time.perf_counter()
+        for i in (4, 5):
+            run(state, i)
+        _sync()
+        timed += time.perf_counter() - t0
+        after = []
+        for i in (4, 5):
+            fresh, m = step(fresh, batches[i])
+            after.append(float(m["loss"]))
+        for got, want in zip(after, losses[4:6]):
+            _close_to_largest("T1 resumed loss", torch.tensor(got),
+                              torch.tensor(want), 1e-4)
+        err = _state_errors("T1 resumed", fresh, state, 1e-4)
+        t_round = time.perf_counter() - t_round
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free()
+    sec = timed / 5
+    tokens = cut.dims["batch"] * cut.dims["seq"]
+    flops = model_flops(arch, cut)
+    peak_rate = _bf16_matmul_tflops()
+    model = lm_train_bytes(cfg, n_params, cut.dims["batch"] // mb,
+                           cut.dims["seq"])
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"T1 non-finite loss: {losses}")
+    print(f"[train] T1 smollm-360m train_4k cut to batch {cut.dims['batch']} "
+          f"(seq {cut.dims['seq']}, {mb} microbatches of "
+          f"{cut.dims['batch'] // mb}): params={n_params} "
+          f"s_per_step={sec!r} tokens_per_s={tokens / sec:.1f} "
+          f"model_flops={flops:.6e} model_tflops={flops / sec / 1e12:.2f} "
+          f"= {flops / sec / 1e12 / peak_rate:.3f} of a bf16 8192^3 "
+          f"matmul's {peak_rate:.1f} TFLOP/s; max_memory_allocated={peak} "
+          f"({peak / GIB:.2f} GiB) against the analytic {model['total']} "
+          f"({(peak - model['total']) / model['total']:+.3f}: state "
+          f"{model['state']} + remat block inputs {model['remat_inputs']} + "
+          f"the larger of the head {model['head']} and one block's "
+          f"recompute {model['block_recompute']}); losses {losses}",
+          flush=True)
+    print(f"[train] T1 checkpoint after step 3: {len(files)} shard files, "
+          f"{on_disk} B on disk, write {write_s:.2f} s, read {read_s:.2f} s; "
+          f"every restored leaf bit-equal; steps 4-5 from it {after} "
+          f"against {losses[4:6]}, largest state error {err:.3e} of its "
+          f"leaf's largest magnitude; the untimed first step {t_first:.1f} "
+          f"s, the round trip with the timed steps 4-5 {t_round:.1f} s",
+          flush=True)
+    if len(files) < 4:
+        raise AssertionError(f"T1 checkpoint in {len(files)} shard files")
+    t0 = time.perf_counter()
+    _profile(f"T1 smollm-360m train_4k/{cut.dims['batch']}, one step of "
+             f"{mb} microbatches", lambda: step(state, batches[0]), cpu=False)
+    print(f"[train] T1 the profiled step and its parse took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    model_mod = state["params"]
+    del state, batches
+    _free()
+    return model_mod, arch, sec
+
+
+def phase_train_autoint() -> None:
+    """(T2): AutoInt at its registered ``train_batch`` (65,536), f32,
+    tables 39 x 1,000,000 x 16 (2,496,000,000 B), no cut: one untimed
+    ``build_train_step`` step, three timed; the peak beside the batch and
+    the larger of AdamW's update (the parameters, their gradients, the
+    moments, the clipped gradients, and at the largest leaf its new
+    ``mu``, ``nu`` and three live temporaries, from the code) and the
+    forward (the parameters, the moments and PR 22's activation count; no
+    activation outlives the backward)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.train.step import build_train_step, concrete_train_state
+
+    _free()
+    arch = get_config("autoint")
+    state = concrete_train_state(arch, 0, device="cuda")
+    params = list(state["params"].parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in params)
+    largest = max(p.numel() * 4 for p in params)
+    batch = make_batch(arch, "train_batch", 0, device="cuda")
+    b = batch["dense"].shape[0]
+    step = build_train_step(arch)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(state, batch)[1]["loss"])]
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        losses.append(float(step(state, batch)[1]["loss"]))
+    _sync()
+    sec = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    batch_bytes = sum(v.numel() * v.element_size() for v in batch.values())
+    act = autoint_act_bytes(arch.model, b)
+    update = 5 * p_bytes + 5 * largest
+    forward = 3 * p_bytes + act
+    model = max(update, forward) + batch_bytes
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"T2 non-finite loss: {losses}")
+    print(f"[train] T2 autoint train_batch (batch {b}, no cut): "
+          f"s_per_step={sec!r} rows_per_s={b / sec:.0f}; "
+          f"max_memory_allocated={peak} ({peak / GIB:.2f} GiB) against "
+          f"batch {batch_bytes} + the larger of AdamW's update, 5 x params "
+          f"{p_bytes} (parameters, gradients, mu, nu, clipped gradients) + "
+          f"5 x the largest leaf {largest} (its new mu and nu and three "
+          f"live temporaries) = {update}, and the forward, 3 x params + "
+          f"activations {act} = {forward}: {model} "
+          f"({(peak - model) / model:+.3f}); losses {losses}", flush=True)
+    del state, batch, params
+    _free()
+
+
+def phase_train_launcher() -> None:
+    """(T3): ``launch.train.main`` on the card: reduced smollm-360m for
+    10 steps (checkpoints every 3 under ``TMPDIR``) stopped when step 6's
+    batch is asked for, then resumed to step 10, its last loss within
+    ``1e-4`` of a straight 10-step run's; then graphsage-reddit at
+    ``smoke_full`` and AutoInt at ``--reduced``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as launch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    args = ["--arch", "smollm-360m", "--reduced", "--steps", "10",
+            "--ckpt-every", "3", "--device", "cuda"]
+    real = launch.make_batch
+
+    def stop_at_6(arch, cell, seed, **kw):
+        if seed == launch.batch_seed(6):
+            raise KeyboardInterrupt("stopped at step 6")
+        return real(arch, cell, seed, **kw)
+    try:
+        _, straight = launch.main(args + ["--ckpt", f"{tmp}/straight"])
+        launch.make_batch = stop_at_6
+        try:
+            launch.main(args + ["--ckpt", f"{tmp}/resumed"])
+            raise AssertionError("T3: the first run was not stopped")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            launch.make_batch = real
+        state, resumed = launch.main(args + ["--ckpt", f"{tmp}/resumed"])
+        err = _close_to_largest("T3 resumed loss", resumed["loss"],
+                                straight["loss"], 1e-4)
+        if state["opt"].param_groups[0]["step"] != 10:
+            raise AssertionError("T3: the resumed run did not reach step 10")
+        print(f"[train] T3 launcher smollm-360m --reduced: resumed from step "
+              f"6 to 10, last loss {float(resumed['loss'])!r} against the "
+              f"straight run's {float(straight['loss'])!r} (error {err:.3e})",
+              flush=True)
+        for argv in (["--arch", "graphsage-reddit", "--reduced", "--cell",
+                      "smoke_full"], ["--arch", "autoint", "--reduced"]):
+            _, m = launch.main(argv + ["--steps", "5", "--device", "cuda"])
+            if not torch.isfinite(m["loss"]):
+                raise AssertionError(f"T3 {argv}: loss {m['loss']}")
+            print(f"[train] T3 launcher {argv[1]}: 5 steps, last loss "
+                  f"{float(m['loss'])!r}", flush=True)
+    finally:
+        launch.make_batch = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free()
+
+
+def phase_train_ddp(model, arch) -> None:
+    """(T4): ``build_ddp_step`` under NCCL at world size 1
+    (``FileStore`` under ``TMPDIR``): reduced smollm-360m, compressed and
+    plain, 3 steps each, held to the same steps on a gloo group of 1 on
+    the CPU (plain: every leaf within ``1e-5``; compressed: the parameters
+    and loss within ``1e-5``, see ``_state_errors``); then one compressed
+    and one plain DDP step of T1's model at one of its microbatches (2 x
+    4,096 tokens), each timed after an untimed one. The process group is
+    destroyed before it returns."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeCell, reduced_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.transformer import build_lm
+    from repro_torch.train.ddp import build_ddp_step, init_ddp_state
+    from repro_torch.train.step import state_leaves
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        small = reduced_config("smollm-360m")
+        for compress in (True, False):
+            states = {}
+            for dev in ("cpu", "cuda"):
+                lm = build_lm(small.model, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+                states[dev] = init_ddp_state(lm, device=dev)
+            fns = {"cuda": build_ddp_step(small, compress=compress),
+                   "cpu": build_ddp_step(small, gloo, compress=compress)}
+            losses = []
+            for i in range(3):
+                batch = make_batch(small, "smoke_train", i, device="cpu")
+                out = {}
+                for dev in ("cpu", "cuda"):
+                    states[dev], out[dev] = fns[dev](
+                        states[dev], {k: v.to(dev) for k, v in batch.items()})
+                for k in ("loss", "grad_norm") if not compress else ("loss",):
+                    _close_to_largest(f"T4 step {i} {k}", out["cuda"][k],
+                                      out["cpu"][k], 1e-5)
+                losses.append(float(out["cuda"]["loss"]))
+            err = _state_errors(f"T4 {'int8' if compress else 'f32'}",
+                                states["cuda"], states["cpu"], 1e-5,
+                                one_step=compress)
+            print(f"[train] T4 ddp reduced smollm-360m "
+                  f"{'int8-compressed' if compress else 'plain'} at nccl "
+                  f"world 1 against gloo world 1 on the CPU: 3 steps, "
+                  f"losses {losses}, largest error {err:.3e}", flush=True)
+        del states
+        _free()
+
+        cell = ShapeCell("train_4k", "train", {
+            "seq": 4096, "batch": TRAIN_T1["batch"] // TRAIN_T1[
+                "microbatches"]})
+        big = dataclasses.replace(arch, cells=(cell,))
+        state = init_ddp_state(model, device="cuda")
+        n = sum(p.numel() for p in model.parameters())
+        batch = make_batch(big, "train_4k", 7, device="cuda")
+        for compress in (True, False):
+            fn = build_ddp_step(big, compress=compress)
+            fn(state, batch)                          # untimed
+            _sync()
+            t0 = time.perf_counter()
+            _, m = fn(state, batch)
+            _sync()
+            sec = time.perf_counter() - t0
+            if not torch.isfinite(m["loss"]):
+                raise AssertionError(f"T4 full: loss {m['loss']}")
+            # the int8 values are summed as int32 (both packages), beside
+            # one f32 maximum a leaf
+            leaves = sum(1 for p, _ in state_leaves(state)
+                         if p[0] == "params")
+            payload = 4 * n + 4 * leaves if compress else 4 * n
+            how = (f"int8 quantized, summed in int32, {leaves} leaf "
+                   f"maxima" if compress else "f32")
+            print(f"[train] T4 ddp smollm-360m {cell.dims['batch']} x 4096 "
+                  f"{'int8-compressed' if compress else 'plain'} at nccl "
+                  f"world 1: s_per_step={sec!r} all-reduce payload "
+                  f"{payload} B ({how}; f32 is {4 * n} B); loss "
+                  f"{float(m['loss'])!r}", flush=True)
+        del state, batch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free()
+
+
+def phase_train() -> dict:
+    """(T) training on the card: T0-T4. Returns the kernels' launches
+    over the phase (none is due: the training path reaches no counting
+    kernel)."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return out
+    timed("T0", phase_train_parity)
+    model, arch, _ = timed("T1", phase_train_lm_full)
+    timed("T2", phase_train_autoint)
+    timed("T3", phase_train_launcher)
+    timed("T4", phase_train_ddp, model, arch)
+    del model
+    _free()
+    counts = _read_counts()
+    print(f"[train] phase (T) took {time.perf_counter() - t0:.1f} s "
+          f"({took} s)", flush=True)
+    return counts
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -3727,12 +4258,13 @@ def main() -> int:
     phase_lm_consistency()
     by_path["lm_serve"] = phase_lm_serving()
     by_path["autoint_cells"] = phase_autoint_cells()
-    for path in ("lm_serve", "autoint_cells"):
+    print(f"[lm] phase (L) took {time.perf_counter() - t_lm:.1f} s",
+          flush=True)
+    by_path["train"] = phase_train()
+    for path in ("lm_serve", "autoint_cells", "train"):
         if any(by_path[path].values()):
             raise AssertionError(f"{path} launched a counting kernel: "
                                  f"{by_path[path]}")
-    print(f"[lm] phase (L) took {time.perf_counter() - t_lm:.1f} s",
-          flush=True)
     # each kernel's numbers at the f32 shapes of the path it was added
     # for; its launches are those of that path's full run
     rows_of = {

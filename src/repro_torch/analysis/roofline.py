@@ -8,16 +8,19 @@ measures the card's memory rate (the larger of a copy's and a read's) and
 f32 rate and passes them here, and takes every eMA, fused and group
 kernel's bytes and flops from the two functions below, so a fraction is
 read against what this card delivers, with its power limit beside it.
-The HLO half of the reference (roofline terms of a compiled artifact)
-serves its models and dry-run launcher, which the port does not have
-yet.
+:func:`model_flops` is the reference's formula for a train or serve step's
+useful flops (``6 * N * tokens`` for a dense LM), which the card's
+training rows divide by their measured time. The HLO half of the
+reference (roofline terms of a compiled artifact) serves its dry-run
+launcher, which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["KernelRoofline", "spmm_ema_flops", "spmm_ema_hbm_bytes"]
+__all__ = ["KernelRoofline", "spmm_ema_flops", "spmm_ema_hbm_bytes",
+           "model_flops"]
 
 
 @dataclasses.dataclass
@@ -109,3 +112,43 @@ def spmm_ema_hbm_bytes(b: int, n: int, c_a: int, c_p: int, s: int,
     if not fused:
         tables += 2 * b * n * c_p
     return tables * itemsize + adj_bytes * adj_passes
+
+
+def model_flops(arch, cell) -> float:
+    """6*N*D (dense LM) / 6*N_active*D (MoE) and family-specific analogues.
+
+    These are *global* useful flops per step; divide by devices before
+    comparing to one device's rate.
+    """
+    fam = arch.family
+    m = arch.model
+    if fam == "lm":
+        tokens = cell.dims["batch"] * (cell.dims["seq"]
+                                       if cell.kind != "decode" else 1)
+        n = m.active_param_count() if m.moe else m.param_count()
+        mult = 6 if cell.kind == "train" else 2
+        return mult * n * tokens
+    if fam == "gnn":
+        d = m.d_hidden
+        if cell.name in ("molecule", "smoke_molecule"):
+            e = cell.dims["e"] * cell.dims["batch"]
+            n = cell.dims["n"] * cell.dims["batch"]
+        else:
+            e, n = cell.dims["e"], cell.dims["n"]
+        # message construction + aggregation + update, per layer
+        per_layer = 2 * e * d * 2 + 2 * n * d * d * 2
+        mult = 3 if cell.kind == "train" else 1
+        return mult * m.n_layers * per_layer
+    # recsys
+    b = cell.dims["batch"]
+    f = m.n_sparse + 1
+    per_ex = (f * m.embed_dim * m.d_attn * 2
+              + m.n_attn_layers * (3 * f * m.d_attn ** 2 * 2
+                                   + 2 * f * f * m.d_attn * 2
+                                   + f * m.d_attn ** 2 * 2)
+              + f * m.d_attn * 2)
+    total = b * per_ex
+    if cell.kind == "retrieval":
+        total += cell.dims["n_candidates"] * cell.dims["d_cand"] * 2 * b
+    mult = 3 if cell.kind == "train" else 1
+    return mult * total

@@ -18,6 +18,7 @@ from repro_torch.configs import (autoint, deepseek_moe_16b, gatedgcn,
                                  nequip, pna, qwen3_moe_30b_a3b, smollm_360m)
 from repro_torch.configs.base import (ArchConfig, GNNConfig, LMConfig,
                                       MoEConfig, RecsysConfig, ShapeCell)
+from repro_torch.configs.shapes import input_specs, resolve_for_mesh
 
 _MODULES = (smollm_360m, llama3_8b, gemma3_1b, deepseek_moe_16b,
             qwen3_moe_30b_a3b, graphsage_reddit, pna, gatedgcn, nequip,
@@ -72,5 +73,5 @@ def reduced_config(arch_id: str) -> ArchConfig:
 
 
 __all__ = ["REGISTRY", "ARCH_IDS", "get_config", "reduced_config",
-           "ArchConfig", "LMConfig", "GNNConfig", "RecsysConfig",
+           "input_specs", "resolve_for_mesh", "ArchConfig", "LMConfig", "GNNConfig", "RecsysConfig",
            "MoEConfig", "ShapeCell"]

@@ -11,6 +11,15 @@ reference's distributions (``u**3 * vocab`` tokens; uniform ids, ``-1``
 bag padding, gaussian dense features, Bernoulli(0.3) labels), not its key
 stream: the reference draws them from JAX keys, which numpy cannot
 follow.
+
+:func:`make_batch` is the reference's ``make_batch(arch, cell_name,
+key)`` with a numpy seed in place of the key: it dispatches to the three
+family functions and returns the arrays alone, their shapes and dtypes
+those of :func:`repro_torch.configs.shapes.input_specs`; the statics
+(``pool``, ``n_graphs``) come from :func:`statics_for`. A GNN batch from
+seed ``s`` equals the reference's from any key whose
+``jax.random.randint(key, (), 0, 1 << 30)`` is ``s``; LM and recsys
+batches do not follow the reference's key stream (above).
 """
 
 from __future__ import annotations
@@ -19,10 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.configs.shapes import pad_to
+from repro_torch.configs.shapes import input_specs, pad_to
 from repro_torch.device import resolve_device
 
-__all__ = ["gnn_batch", "lm_token_stream", "lm_batch", "recsys_batch"]
+__all__ = ["make_batch", "statics_for", "gnn_batch", "lm_token_stream",
+           "lm_batch", "recsys_batch"]
 
 _MOLECULE_CELLS = ("molecule", "smoke_molecule")
 
@@ -145,3 +155,41 @@ def recsys_batch(arch: ArchConfig, cell_name: str, seed: int, *,
         arrays["retrieval_proj"] = rng.standard_normal(
             (n_fields * m.d_attn, dc), dtype=np.float32) * np.float32(0.05)
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def statics_for(arch: ArchConfig, cell_name: str) -> dict:
+    _, _, statics = input_specs(arch, cell_name)
+    return statics
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def make_batch(arch: ArchConfig, cell_name: str, seed: int = 0, *,
+               device=None) -> dict:
+    """The batch of ``arch`` at ``cell_name`` drawn from the numpy seed
+    ``seed``, on ``device`` (CUDA unless ``"cpu"``): the arrays of
+    ``input_specs``' batch tree at its shapes and dtypes (a decode cache
+    half full), without the statics."""
+    if arch.family == "lm":
+        batch = lm_batch(arch, cell_name, seed, device=device)
+    elif arch.family == "gnn":
+        batch = {k: v for k, v in gnn_batch(arch, cell_name, seed,
+                                            device=device).items()
+                 if isinstance(v, torch.Tensor)}
+    elif arch.family == "recsys":
+        batch = recsys_batch(arch, cell_name, seed, device=device)
+    else:
+        raise ValueError(arch.family)
+    specs, _, _ = input_specs(arch, cell_name)
+    want = {k: (tuple(v.shape), v.dtype) for k, v in _leaves(specs)}
+    got = {k: (tuple(v.shape), v.dtype) for k, v in _leaves(batch)}
+    if got != want:
+        raise AssertionError(f"{arch.arch_id}/{cell_name}: batch {got} is "
+                             f"not its input specs {want}")
+    return batch

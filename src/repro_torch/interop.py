@@ -24,6 +24,12 @@ reference's layout, :func:`decode_cache_from_arrays` and
 :func:`decode_cache_to_arrays` carry an LM decode cache, and
 :func:`adamw_state_from_arrays` loads the reference's AdamW state
 (``{"mu", "nu", "step"}``) into the port's :class:`AdamW`.
+
+A whole train state crosses with :func:`train_state_from_arrays` and
+:func:`train_state_to_arrays`: the reference's ``{"params", "opt"[,
+"residual"]}`` pytree of numpy leaves, bfloat16 leaves kept bfloat16 (as
+their ``uint16`` bits on the way out; ``ml_dtypes`` bfloat16 arrays or
+``uint16`` bits on the way in), so a state crosses bit for bit.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ __all__ = ["graph_from_arrays", "bsr_from_arrays", "splits_from_arrays",
            "engine_from_state", "gnn_from_params", "nequip_from_params",
            "lm_from_params", "autoint_from_params", "params_to_arrays",
            "decode_cache_from_arrays", "decode_cache_to_arrays",
-           "adamw_state_from_arrays"]
+           "adamw_state_from_arrays", "train_state_from_arrays",
+           "train_state_to_arrays"]
 
 
 def graph_from_arrays(n: int, indptr, indices) -> Graph:
@@ -273,3 +280,48 @@ def adamw_state_from_arrays(opt, state: dict) -> None:
             opt.state[p] = {
                 k: torch.from_numpy(_lookup(state[k], path).astype(
                     np.float32)).to(p.device) for k in ("mu", "nu")}
+
+
+# -------------------------------------------------------------- train state
+def _tensor_of(a) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (``ml_dtypes``) arrays and
+    ``uint16`` bits become bfloat16, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def train_state_from_arrays(arch, tree: dict, d_in: int | None = None, *,
+                            device=None) -> dict:
+    """The port's train state (:mod:`repro_torch.train.step`) on
+    ``device`` holding the reference's ``{"params", "opt"[,
+    "residual"]}`` of numpy leaves, bit for bit; a GNN's ``d_in`` is read
+    off its input layer when not given."""
+    from repro_torch.train.step import (concrete_train_state,
+                                        load_state_leaves, tree_leaves)
+    if d_in is None and arch.family == "gnn" and arch.model.kind != "nequip":
+        d_in = np.asarray(tree["params"]["embed"]["w"]).shape[0]
+    state = concrete_train_state(arch, 0, d_in, device=device)
+    if "residual" in tree:
+        state["residual"] = {
+            n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for n, p in state["params"].named_parameters()}
+    return load_state_leaves(state, [_tensor_of(a)
+                                     for _, a in tree_leaves(tree)])
+
+
+def train_state_to_arrays(state: dict) -> dict:
+    """The port's train state as the reference's pytree of numpy arrays
+    (an LM's layers stacked, the step a 0-d int32); bfloat16 leaves are
+    ``uint16`` arrays of their bits (``a.view(ml_dtypes.bfloat16)`` reads
+    them), every other leaf keeps its dtype."""
+    from repro_torch.train.step import state_tree
+
+    def arr(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return _map_leaves(arr, state_tree(state))

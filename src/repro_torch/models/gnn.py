@@ -95,6 +95,8 @@ def segment_min(data, segment_ids, num_segments: int):
 
 # ------------------------------------------------------------------ layers
 def _normal(shape, scale: float, *, dtype, device, generator):
+    if torch.device(device).type == "meta":   # an abstract model: no draw
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
     w = torch.randn(shape, generator=generator, device=generator.device)
     return nn.Parameter((w * scale).to(device=device, dtype=dtype))
 

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import MLP, draw_normal, mlp_swiglu
+from repro_torch.models.layers import MLP, draw_normal, mlp_swiglu, silu
 
 __all__ = ["MoE", "moe_ffn", "route", "pick_groups"]
 
@@ -110,7 +110,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
 
     # expert compute: einsum("gecd,edf->gecf") as a batched product over E
     be = buf.transpose(0, 1).reshape(e, g * capacity, d)
-    h = F.silu(torch.bmm(be, p.w_gate)) * torch.bmm(be, p.w_up)
+    h = silu(torch.bmm(be, p.w_gate)) * torch.bmm(be, p.w_up)
     y = torch.bmm(h, p.w_down).reshape(e, g, capacity, d).transpose(0, 1)
 
     # combine: gather each kept slot's output, weight by its gate

@@ -25,6 +25,7 @@ the same dict, where the reference returns a new one.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -33,8 +34,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, moe_ffn
 
 __all__ = ["Block", "LM", "build_lm", "lm_forward", "lm_loss",
-           "init_decode_cache", "lm_decode_step", "lm_prefill",
-           "lm_prefill_chunked", "layer_is_global", "window_flags"]
+           "init_decode_cache", "decode_cache_on", "lm_decode_step",
+           "lm_prefill", "lm_prefill_chunked", "layer_is_global",
+           "window_flags"]
 
 
 def layer_is_global(cfg, idx: int) -> bool:
@@ -93,6 +95,17 @@ class Block(nn.Module):
         return L.mlp_swiglu(self.mlp, hn), hn.new_zeros((),
                                                         dtype=torch.float32)
 
+    def _ffn_residual(self, x, h):
+        """``x + h``, then the FFN on its norm and the second residual ->
+        (out, aux). The sum ``x + h`` stays f32 until the block's end, as
+        XLA keeps it at default precision (its bf16 rounding is elided:
+        the sum feeds only the f32 norm and the f32 add), so a bf16 block
+        rounds once, at its output."""
+        xs = x.float() + h.float()
+        f, aux = self.ffn(L.rms_norm(self.ln2, xs, self.cfg.norm_eps
+                                     ).to(x.dtype))
+        return (xs + f.float()).to(x.dtype), aux
+
     def forward(self, x, is_global, q_chunk: int = 1024,
                 kv_chunk: int = 1024):
         """-> (x, aux_loss). The local/global mix is the layer's flag
@@ -102,9 +115,7 @@ class Block(nn.Module):
                         is_global=is_global, q_chunk=q_chunk,
                         kv_chunk=kv_chunk, unroll_chunks=c.attn_unroll,
                         **self._attn_kw())
-        x = x + h
-        f, aux = self.ffn(L.rms_norm(self.ln2, x, c.norm_eps))
-        return x + f, aux
+        return self._ffn_residual(x, h)
 
     def prefill(self, x, cache_k, cache_v, c0: int, is_global):
         """One block over a prompt chunk at offset c0: writes the chunk's
@@ -113,8 +124,7 @@ class Block(nn.Module):
         h, _, _ = L.prefill_attention(
             self.attn, L.rms_norm(self.ln1, x, c.norm_eps), cache_k, cache_v,
             c0, is_global=is_global, **self._attn_kw())
-        x = x + h
-        return x + self.ffn(L.rms_norm(self.ln2, x, c.norm_eps))[0]
+        return self._ffn_residual(x, h)[0]
 
     def decode(self, x, cache_k, cache_v, cache_len, is_global, *,
                window: bool = True):
@@ -124,8 +134,7 @@ class Block(nn.Module):
         h, _, _ = L.decode_attention(
             self.attn, L.rms_norm(self.ln1, x, c.norm_eps), cache_k, cache_v,
             cache_len, is_global=is_global, **self._attn_kw(window))
-        x = x + h
-        return x + self.ffn(L.rms_norm(self.ln2, x, c.norm_eps))[0]
+        return self._ffn_residual(x, h)[0]
 
 
 class LM(nn.Module):
@@ -171,9 +180,11 @@ def lm_forward(model: LM, tokens: torch.Tensor, *, q_chunk: int = 1024,
                kv_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) f32, aux_loss). Attention runs
     full up to ``max(q_chunk, kv_chunk)`` tokens, blocked beyond (the
-    reference's 1024 by default)."""
+    reference's 1024 by default). The embedding lookup is ``F.embedding``,
+    whose backward sums a repeated token's rows in a fixed order on the
+    CPU (an indexed gather's adds in any order)."""
     cfg = model.cfg
-    x = model.embed[tokens.long()]
+    x = F.embedding(tokens.long(), model.embed)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     blocks = [(b, 1.0) for b in model.dense_front] + list(zip(
@@ -207,7 +218,13 @@ def init_decode_cache(cfg, batch: int, s_max: int, dtype=torch.bfloat16, *,
     ``v_front``), and ``len`` (0-d int32). The dtype defaults to bf16
     whatever the parameters' dtype, as in the reference. Gemma3's windowed
     layers keep a full-length cache too."""
-    dev = resolve_device(device)
+    return decode_cache_on(cfg, batch, s_max, dtype, resolve_device(device))
+
+
+def decode_cache_on(cfg, batch: int, s_max: int, dtype,
+                    dev: torch.device) -> dict:
+    """:func:`init_decode_cache` on a device as given, unresolved: the
+    meta device of the input specs allocates nothing."""
     front = _n_front(cfg)
     shape = (cfg.n_layers - front, batch, s_max, cfg.n_kv_heads,
              cfg.head_dim)
@@ -228,7 +245,7 @@ def lm_decode_step(model: LM, cache: dict, token: torch.Tensor,
     ``shard_hints`` is accepted and ignored (one card; see
     :func:`~repro_torch.models.layers.decode_attention`)."""
     cfg = model.cfg
-    x = model.embed[token.long()]
+    x = F.embedding(token.long(), model.embed)
     cache_len = cache["len"]
     for i, block in enumerate(model.dense_front):
         x = block.decode(x, cache["k_front"][i], cache["v_front"][i],
@@ -260,7 +277,7 @@ def lm_prefill_chunked(model: LM, tokens: torch.Tensor, cache: dict,
                          f"{chunk}")
     flags = window_flags(cfg, len(model.layers))
     for c0 in range(0, s, chunk):
-        x = model.embed[tokens[:, c0:c0 + chunk].long()]
+        x = F.embedding(tokens[:, c0:c0 + chunk].long(), model.embed)
         for i, block in enumerate(model.dense_front):
             x = block.prefill(x, cache["k_front"][i], cache["v_front"][i],
                               c0, 1.0)

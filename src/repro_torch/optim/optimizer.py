@@ -67,28 +67,51 @@ class AdamW(torch.optim.Optimizer):
         self.cfg = cfg
         self.last_grad_norm = self.last_lr = None
 
+    def params(self) -> list:
+        """The parameters in the order :meth:`step` takes ``grads``."""
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def init_moments(self) -> None:
+        """Zero float32 moments for every parameter that has none, as the
+        reference's ``init_adamw`` makes them before the first step."""
+        for p in self.params():
+            if not self.state[p]:
+                self.state[p]["mu"] = torch.zeros_like(p,
+                                                       dtype=torch.float32)
+                self.state[p]["nu"] = torch.zeros_like(p,
+                                                       dtype=torch.float32)
+
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, *, grads=None, cfg: AdamWConfig | None
+             = None):
+        """One update from ``grads`` (one a parameter, in :meth:`params`'
+        order, of any float dtype: the reference hands ``adamw_update``
+        float32 accumulated gradients for bf16 parameters), or from each
+        parameter's ``.grad`` when ``grads`` is ``None``; ``cfg`` in place
+        of the optimizer's own for this step (the reference's train step
+        holds the config, not its state)."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        cfg = self.cfg
-        params = [p for group in self.param_groups for p in group["params"]]
+        cfg = cfg or self.cfg
+        params = self.params()
         step = self.param_groups[0]["step"] + 1
         for group in self.param_groups:
             group["step"] = step
         lr = cosine_schedule(cfg, step)
         t = torch.tensor(step, dtype=torch.float32)
         bc1, bc2 = 1 - cfg.b1 ** t, 1 - cfg.b2 ** t
-        grads, gnorm = clip_by_global_norm(
-            [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params], cfg.clip_norm)
+        if grads is None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+        elif len(grads) != len(params):
+            raise ValueError(f"{len(grads)} gradients for {len(params)} "
+                             f"parameters")
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        self.init_moments()
         for p, g in zip(params, grads):
             state = self.state[p]
-            if not state:
-                state["mu"] = torch.zeros_like(p, dtype=torch.float32)
-                state["nu"] = torch.zeros_like(p, dtype=torch.float32)
             g32, p32 = g.float(), p.float()
             mu = cfg.b1 * state["mu"] + (1 - cfg.b1) * g32
             nu = cfg.b2 * state["nu"] + (1 - cfg.b2) * g32 * g32

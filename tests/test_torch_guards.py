@@ -17,10 +17,10 @@ import torch
 from repro_torch import api, interop
 from repro_torch.core.distributed import coloring_for_seed
 from repro_torch.core.engines import CountingEngine
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.templates import get_template
 from repro_torch.data.synthetic import (gnn_batch, lm_batch, lm_token_stream,
-                                        recsys_batch)
+                                        make_batch, recsys_batch)
 from repro_torch.device import resolve_device
 from repro_torch.graph.coloring import batch_colorings, iteration_key
 from repro_torch.graph.generators import grid_2d
@@ -30,6 +30,8 @@ from repro_torch.models.equivariant import build_nequip
 from repro_torch.models.gnn import build_gnn
 from repro_torch.models.recsys import build_autoint
 from repro_torch.models.transformer import build_lm, init_decode_cache
+from repro_torch.train.ddp import init_ddp_state
+from repro_torch.train.step import abstract_train_state, concrete_train_state
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -149,7 +151,24 @@ ENTRY_POINTS = {
     "decode_cache_from_arrays": lambda **kw: interop.decode_cache_from_arrays(
         interop.decode_cache_to_arrays(init_decode_cache(
             reduced_config("smollm-360m").model, 1, 4, device="cpu")), **kw),
+    "make_batch": lambda **kw: make_batch(reduced_config("autoint"),
+                                          "smoke_train", 0, **kw),
+    "concrete_train_state": lambda **kw: concrete_train_state(
+        reduced_config("gemma3-1b"), 0, **kw),
+    "init_ddp_state": lambda **kw: init_ddp_state(
+        build_lm(reduced_config("smollm-360m").model, device="cpu"), **kw),
+    "train_state_from_arrays": lambda **kw: interop.train_state_from_arrays(
+        reduced_config("autoint"), interop.train_state_to_arrays(
+            concrete_train_state(reduced_config("autoint"), 0,
+                                 device="cpu")), **kw),
+    "launch.train.main": lambda **kw: _train_main(**kw),
 }
+
+
+def _train_main(device=None):
+    from repro_torch.launch import train
+    return train.main(["--arch", "autoint", "--reduced", "--steps", "1"]
+                      + (["--device", device] if device else []))
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -198,9 +217,47 @@ def test_new_modules_are_scanned():
             "src/repro_torch/models/transformer.py",
             "src/repro_torch/models/recsys.py",
             "examples/serve_lm_torch.py",
+            "examples/train_lm_torch.py",
+            "src/repro_torch/train/__init__.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/train/sharding.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/train/ddp.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/analysis/roofline.py",
             "examples/gnn_motif_features_torch.py",
             "examples/quickstart_torch.py",
             "examples/distributed_counting_torch.py"} <= names
+
+
+def test_abstract_train_state_allocates_nothing_and_needs_no_card(
+        monkeypatch):
+    """llama3-8b's whole train state (8.0e9 parameters, 96 GB with its
+    moments) on the meta device: no storage anywhere, no card asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    state = abstract_train_state(get_config("llama3-8b"))
+    model, opt = state["params"], state["opt"]
+    params = list(model.parameters())
+    assert sum(p.numel() for p in params) == 8_030_261_248
+    assert all(p.device.type == "meta" for p in params)
+    moments = [t for p in params for t in opt.state[p].values()]
+    assert len(moments) == 2 * len(params)
+    assert all(t.device.type == "meta" and t.dtype == torch.float32
+               for t in moments)
+
+
+def test_importing_the_training_layer_loads_no_jax():
+    code = ("import sys, repro_torch.train.step, repro_torch.train.ddp, "
+            "repro_torch.train.sharding, repro_torch.train.checkpoint, "
+            "repro_torch.launch.train, repro_torch.configs.shapes, "
+            "repro_torch.analysis.roofline; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.', "
+            "'ml_dtypes')) for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin"})
+    assert out.stdout.strip() == "False"
 
 
 def test_importing_the_service_and_launcher_loads_no_jax():

@@ -2,8 +2,8 @@
 ``repro_torch.obs`` export the JAX package's names (the graph package
 less ``EdgeChunks``, the TPU's padded edge operand, which the port's
 ``GatherPrep`` replaced), the port's own counting examples run on the
-CPU at a cut size, and its LM serving example runs beside the
-reference's."""
+CPU at a cut size, its LM serving example runs beside the reference's,
+and its LM training example trains, checkpoints and resumes."""
 
 import importlib.util
 from pathlib import Path
@@ -156,3 +156,62 @@ def test_serve_lm_example_decodes_greedily_on_its_own():
     for i in range(1, len(steps)):
         assert torch.equal(out["tokens"][:, i:i + 1],
                            steps[i - 1][:, -1:].argmax(-1).to(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The training example's small products on one thread: beside other
+    test processes, a thread pool each spends its time waiting."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def straight_train_run(tmp_path_factory, one_thread):
+    """``examples/train_lm_torch.py``: 30 steps on the CPU, straight
+    through, checkpointing every 10."""
+    ckpt = tmp_path_factory.mktemp("straight")
+    return _example("train_lm_torch").main(
+        ["--steps", "30", "--device", "cpu", "--ckpt", str(ckpt),
+         "--ckpt-every", "10"])
+
+
+def test_train_lm_example_loss_falls(straight_train_run):
+    losses = straight_train_run["losses"]
+    assert sorted(losses) == list(range(30))
+    first = sum(losses[i] for i in range(5)) / 5
+    last = sum(losses[i] for i in range(25, 30)) / 5
+    assert last < first - 0.1, (first, last)
+
+
+def test_train_lm_example_resumes_bit_for_bit(straight_train_run, tmp_path,
+                                              monkeypatch):
+    """Killed at step 20 (after the checkpoint of step 20), then resumed
+    to 30: every parameter, moment and the step equal the straight run's
+    bit for bit."""
+    ex = _example("train_lm_torch")
+    real = ex.batch_for
+
+    def dies_at_20(it, *args):
+        if it == 20:
+            raise KeyboardInterrupt("killed")
+        return real(it, *args)
+    monkeypatch.setattr(ex, "batch_for", dies_at_20)
+    argv = ["--steps", "30", "--device", "cpu", "--ckpt", str(tmp_path),
+            "--ckpt-every", "10"]
+    with pytest.raises(KeyboardInterrupt):
+        ex.main(argv)
+    monkeypatch.setattr(ex, "batch_for", real)
+    out = ex.main(argv + ["--resume"])
+    assert sorted(out["losses"]) == list(range(20, 30))
+    for i in range(20, 30):
+        assert out["losses"][i] == straight_train_run["losses"][i]
+    from repro_torch.train.step import state_leaves
+    got = state_leaves(out["state"])
+    want = state_leaves(straight_train_run["state"])
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (p, a), (_, b) in zip(got, want):
+        a, b = a(), b()
+        assert a.dtype == b.dtype and torch.equal(a, b), p

@@ -21,6 +21,15 @@ card and every sum must equal it. The ranks run together for at most
 others. With ``--device cpu`` the ranks run on gloo
 and the kernels' plain versions (a rehearsal off the card). Exits
 non-zero if a rank fails or a sum differs.
+
+With ``--ddp`` it runs data-parallel training instead: reduced
+smollm-360m at batch 8 (4 x 32 tokens a rank) through
+``train.ddp.build_ddp_step``, int8-compressed and plain, 3 steps each
+after one untimed step, s/step on each rank, and the all-reduce's payload
+bytes against f32's. Rank 0 then trains the same model one-card on the
+whole batches (``train.step.build_train_step``): the plain DDP run's
+losses, parameters and moments must be within ``1e-5`` of each leaf's
+largest magnitude of it, every rank's parameters equal rank 0's.
 """
 
 from __future__ import annotations
@@ -101,6 +110,113 @@ dist.destroy_process_group()
 '''
 
 
+_DDP_RANK = r'''
+import json, sys, time
+import torch
+import torch.distributed as dist
+rank, world, addr, device, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+on_card = device == "cuda"
+if on_card:
+    torch.cuda.set_device(rank)
+dev = torch.device(f"cuda:{rank}" if on_card else "cpu")
+dist.init_process_group("nccl" if on_card else "gloo", init_method=addr,
+                        rank=rank, world_size=world)
+import dataclasses
+from repro_torch.configs import ShapeCell, reduced_config
+from repro_torch.data.synthetic import make_batch
+from repro_torch.models.transformer import build_lm
+from repro_torch.train.ddp import build_ddp_step, init_ddp_state
+from repro_torch.train.step import build_train_step, _state, state_leaves
+STEPS = 3
+arch = reduced_config("smollm-360m")
+arch = dataclasses.replace(arch, cells=(ShapeCell(
+    "ddp_train", "train", {"seq": 32, "batch": 2 * world}),))
+batches = [make_batch(arch, "ddp_train", 50 + i, device="cpu")
+           for i in range(STEPS + 1)]
+def model():
+    return build_lm(arch.model, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+def sync():
+    if on_card:
+        torch.cuda.synchronize(dev)
+def leaves(state):
+    return {"/".join(map(str, p)): get().detach().cpu().double()
+            for p, get in state_leaves(state)}
+res = {}
+for compress in (True, False):
+    state = init_ddp_state(model(), device=dev)
+    fn = build_ddp_step(arch, compress=compress)
+    losses = []
+    warm = init_ddp_state(model(), device=dev)
+    fn(warm, {k: v.to(dev) for k, v in batches[0].items()})   # untimed
+    del warm
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, m = fn(state, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    sync()
+    sec = (time.perf_counter() - t0) / STEPS
+    n = sum(p.numel() for p in state["params"].parameters())
+    n_leaves = sum(1 for p, _ in state_leaves(state) if p[0] == "params")
+    res["int8" if compress else "f32"] = dict(
+        losses=losses, s_per_step=sec, n=n, leaves=n_leaves,
+        params={k: v.sum().item() for k, v in leaves(state).items()
+                if k.startswith("params")})
+    if not compress:
+        plain = leaves(state)
+if rank == 0:
+    one = _state(model().to(dev))
+    step = build_train_step(arch)
+    losses = []
+    for b in batches[1:]:
+        one, m = step(one, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    want = leaves(one)
+    worst = 0.0
+    for k, w in want.items():
+        if k == "opt/step":
+            assert int(w) == int(plain[k]), k
+            continue
+        scale = w.abs().max().item()
+        err = (plain[k] - w).abs().max().item()
+        assert err <= 1e-5 * scale + 1e-12, (k, err, scale)
+        worst = max(worst, err / scale if scale else 0.0)
+    res["one_card"] = dict(losses=losses, worst=worst)
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+'''
+
+
+def _ddp_report(ranks) -> bool:
+    """Print the DDP runs; -> whether they agree (the one-card check ran
+    in rank 0, which fails on a difference)."""
+    one = ranks[0]["one_card"]
+    ok = True
+    for mode in ("int8", "f32"):
+        rows = [r[mode] for r in ranks]
+        same = all(r["params"] == rows[0]["params"] for r in rows)
+        ok &= same
+        n, leaves = rows[0]["n"], rows[0]["leaves"]
+        payload = 4 * n + 4 * leaves if mode == "int8" else 4 * n
+        print(f"[multicard] ddp reduced smollm-360m batch "
+              f"{2 * len(ranks)} {mode}: s_per_step="
+              f"{[r['s_per_step'] for r in rows]} losses="
+              f"{rows[0]['losses']} all-reduce payload {payload} B a step "
+              f"({'int8 values summed as int32, ' + str(leaves) + ' leaf maxima' if mode == 'int8' else 'f32'}; "
+              f"f32 {4 * n} B); parameters "
+              f"{'equal on every rank' if same else 'DIFFER across ranks'}",
+              flush=True)
+    print(f"[multicard] ddp plain against one card over the whole batch: "
+          f"losses {one['losses']} against {ranks[0]['f32']['losses']}, "
+          f"largest leaf error {one['worst']:.3e} of its largest magnitude",
+          flush=True)
+    return ok
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -113,6 +229,8 @@ def main(argv=None) -> int:
     ap.add_argument("--side", type=int, default=1024)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--ddp", action="store_true",
+                    help="run data-parallel training instead of counting")
     args = ap.parse_args(argv)
     if args.device == "cuda":
         import torch
@@ -127,11 +245,17 @@ def main(argv=None) -> int:
     tmp = Path(tempfile.mkdtemp(prefix="dist_multicard_"))
     addr = f"tcp://localhost:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    done = run_all({f"rank{r}": [
-        sys.executable, "-c", _RANK, str(r), str(args.ranks), addr,
-        str(args.side), args.device, str(tmp / f"rank{r}.json"),
-        json.dumps([MESHES, ITERS])] for r in range(args.ranks)},
-        env, tmp, args.timeout)
+    if args.ddp:
+        cmds = {f"rank{r}": [sys.executable, "-c", _DDP_RANK, str(r),
+                             str(args.ranks), addr, args.device,
+                             str(tmp / f"rank{r}.json")]
+                for r in range(args.ranks)}
+    else:
+        cmds = {f"rank{r}": [
+            sys.executable, "-c", _RANK, str(r), str(args.ranks), addr,
+            str(args.side), args.device, str(tmp / f"rank{r}.json"),
+            json.dumps([MESHES, ITERS])] for r in range(args.ranks)}
+    done = run_all(cmds, env, tmp, args.timeout)
     failed = {name: rc for name, (rc, _, _) in done.items() if rc != 0}
     if failed:
         for name, rc in failed.items():
@@ -140,6 +264,8 @@ def main(argv=None) -> int:
         return 1
     ranks = [json.loads((tmp / f"rank{r}.json").read_text())
              for r in range(args.ranks)]
+    if args.ddp:
+        return 0 if _ddp_report(ranks) else 1
     want = {int(k): v for k, v in ranks[0].pop("engine").items()}
     ok = True
     for mesh, row in ranks[0].items():
