@@ -3923,7 +3923,7 @@ def phase_train_lm_full() -> tuple:
     model_mod = state["params"]
     del state, batches
     _free()
-    return model_mod, arch, sec
+    return model_mod, arch, sec, peak
 
 
 def phase_train_autoint() -> None:
@@ -4126,10 +4126,10 @@ def phase_train_ddp(model, arch) -> None:
     _free()
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple[dict, int]:
     """(T) training on the card: T0-T4. Returns the kernels' launches
     over the phase (none is due: the training path reaches no counting
-    kernel)."""
+    kernel) and T1's peak."""
     t0 = time.perf_counter()
     _reset_counts()
     took = {}
@@ -4140,7 +4140,7 @@ def phase_train() -> dict:
         took[name] = round(time.perf_counter() - t, 1)
         return out
     timed("T0", phase_train_parity)
-    model, arch, _ = timed("T1", phase_train_lm_full)
+    model, arch, _, t1_peak = timed("T1", phase_train_lm_full)
     timed("T2", phase_train_autoint)
     timed("T3", phase_train_launcher)
     timed("T4", phase_train_ddp, model, arch)
@@ -4149,7 +4149,193 @@ def phase_train() -> dict:
     counts = _read_counts()
     print(f"[train] phase (T) took {time.perf_counter() - t0:.1f} s "
           f"({took} s)", flush=True)
-    return counts
+    return counts, t1_peak
+
+
+DRYRUN_TIMEOUT_S = 420         # (Y2)'s two launcher runs together
+DRYRUN_PEAK_SLACK = (0.8, 1.25)  # the reference's own memory slack
+
+
+def _dryrun_vs_card(g) -> dict:
+    """(Y1): (D)'s configuration, u12 dedup on the mesh at mesh ``(1,
+    1)``: one real coloring under NCCL at world size 1 (after an untimed
+    one), its flops counted by ``FlopCounterMode`` (the kernels' ops carry
+    their formulas) and its peak by ``max_memory_allocated`` above what
+    was allocated before the ``DistributedPgbsc`` was built; then the same
+    walk traced in the abstract mode on a fake process group with the
+    graph's ``n``, ``e`` and ``e_max`` (one data shard: every edge). The
+    traced flops must equal the counted ones exactly, and the predicted
+    ``argument_bytes + temp_bytes`` lie within the reference's slack of
+    the measured peak. -> the kernels' launches in the real coloring."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis import hlo
+    from repro_torch.core.distributed import DistributedPgbsc
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    src, _ = g.edges_by_dst
+    dims = {"n": g.n, "e": int(len(src)), "e_max": int(len(src))}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        _free()
+        base = torch.cuda.memory_allocated()
+        dpg = DistributedPgbsc(g, "u12", make_mesh((1, 1), ("data", "model")),
+                               plan="dedup")
+        dpg.count_iterations([0], seed=0)        # NCCL's first collective
+        _sync()
+        _reset_counts()
+        base_peak = torch.cuda.memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            _, per = dpg.count_iterations([0], seed=0)
+        _sync()
+        launches = _read_counts()
+        measured = torch.cuda.max_memory_allocated() - base
+        real_args = base_peak - base
+        counted = fc.get_total_flops()
+        del dpg
+        _free()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    with dryrun.fake_world(1):
+        mesh = dryrun._mesh((1, 1), ("data", "model"), torch.device("cuda"))
+        rec = dryrun.trace_pgbsc("u12 on the mesh", mesh, 1, dims=dims,
+                                 template="u12")
+    mem = rec["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    ratio = predicted / measured
+    print(f"[dryrun] Y1 u12 dedup on the mesh, mesh (1, 1), {_device_line()}"
+          f": traced flops {rec['roofline']['flops']:.0f} against "
+          f"FlopCounterMode's {counted} over one real coloring (sum "
+          f"{per[0]!r}); predicted argument + temp bytes {predicted} "
+          f"(arguments {mem['argument_bytes']}, real {real_args}) against "
+          f"the measured peak {measured} above the rank's start, ratio "
+          f"{ratio:.4f}; traced collectives {rec['collectives']}; ops "
+          f"{rec['hlo_ops']}; trace {rec['compile_s']} s; launches "
+          f"{launches}", flush=True)
+    if rec["roofline"]["flops"] != counted or counted <= 0:
+        raise AssertionError(f"(Y1) traced flops {rec['roofline']['flops']}"
+                             f" != counted {counted}")
+    if not DRYRUN_PEAK_SLACK[0] <= ratio <= DRYRUN_PEAK_SLACK[1]:
+        raise AssertionError(f"(Y1) predicted peak {predicted} is "
+                             f"{ratio:.4f} of the measured {measured}")
+    if min(launches["spmm_gather"], launches["ema"]) == 0:
+        raise AssertionError(f"(Y1) did not launch its kernels: {launches}")
+    return launches
+
+
+def _dryrun_cli() -> None:
+    """(Y2): ``python -m repro_torch.launch.dryrun`` on the card's host,
+    as a user runs it: every PGBSC cell on both production meshes, then
+    llama3-8b ``decode_32k`` on the single mesh; each record's flops,
+    bytes and collective bytes a rank, dominant term and trace seconds.
+    Every PGBSC record must be ``ok``."""
+    import shutil
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_out_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    try:
+        for args in (["--arch", "pgbsc", "--mesh", "both"],
+                     ["--arch", "llama3-8b", "--cell", "decode_32k",
+                      "--mesh", "single"]):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", out], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=DRYRUN_TIMEOUT_S)
+            print(f"[dryrun] Y2 {' '.join(args)}: exit {res.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        recs = []
+        for f in sorted(os.listdir(out)):
+            if f.endswith(".json"):
+                with open(os.path.join(out, f)) as fh:
+                    recs.append(json.load(fh))
+        for r in recs:
+            tag = f"{r['arch']}/{r['cell']}/{r['mesh']}"
+            if not r.get("ok"):
+                print(f"[dryrun] Y2 {tag}: FAILED {r.get('error')}\n"
+                      f"{r.get('traceback', '')[-1500:]}", flush=True)
+                continue
+            rf = r["roofline"]
+            print(f"[dryrun] Y2 {tag} ({r['chips']} ranks, peaks "
+                  f"{r['peaks']['name']}; traced on {_device_line()}): "
+                  f"flops/rank {rf['flops']:.6e} bytes/rank "
+                  f"{rf['bytes']:.6e} collective bytes/rank "
+                  f"{rf['collective_bytes']:.6e} dominant {rf['dominant']} "
+                  f"step bound {rf['step_time_s']:.6e} s; argument "
+                  f"{r['memory']['argument_bytes']} temp "
+                  f"{r['memory']['temp_bytes']} B; collectives "
+                  f"{r['collectives']}; trace {r['compile_s']} s",
+                  flush=True)
+        pgbsc = [r for r in recs if r["arch"] == "pgbsc"]
+        if len(pgbsc) != 8 or not all(r.get("ok") for r in pgbsc):
+            states = [(r["cell"], r["mesh"], r.get("ok")) for r in pgbsc]
+            raise AssertionError(f"(Y2) PGBSC records: {states}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _dryrun_t1(t1_peak: int) -> None:
+    """(Y3): T1's smollm-360m step traced at a ``(1, 1)`` mesh at T1's
+    microbatch shape (2 sequences of 4,096 tokens, bf16, remat) with 2 of
+    its 8 microbatches: the peak is one microbatch's, with the float32
+    accumulators live, so 2 microbatches reach it as 8 do, at a quarter
+    of the trace. Its predicted peak is printed beside T1's measured one,
+    not held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun
+
+    full = get_config("smollm-360m")
+    per_mb = TRAIN_T1["batch"] // TRAIN_T1["microbatches"]
+    cut = ShapeCell("train_4k", "train", {"seq": 4096, "batch": 2 * per_mb})
+    arch = dataclasses.replace(full, cells=(cut,))
+    with dryrun.fake_world(1):
+        dev = hlo.trace_device(autograd=True)
+        mesh = dryrun._mesh((1, 1), ("data", "model"), dev)
+        rec = dryrun.trace_arch(arch, "train_4k", mesh, 1, dev,
+                                microbatches=2)
+    mem = rec["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    print(f"[dryrun] Y3 smollm-360m train_4k at T1's microbatch (2 x 4096, "
+          f"2 microbatches), mesh (1, 1) on fake {dev.type} tensors, "
+          f"{_device_line()}: predicted argument + temp bytes {predicted} "
+          f"(arguments {mem['argument_bytes']}, temp {mem['temp_bytes']}) "
+          f"beside T1's measured max_memory_allocated {t1_peak} (ratio "
+          f"{predicted / t1_peak:.4f}); flops {rec['roofline']['flops']:.6e} "
+          f"ops {rec['hlo_ops']}; trace {rec['compile_s']} s", flush=True)
+
+
+def phase_dryrun(g, t1_peak: int) -> dict:
+    """(Y) the dry run against the card: Y1-Y3. Returns the kernels'
+    launches over the phase (Y1's real coloring)."""
+    t0 = time.perf_counter()
+    took = {}
+    t = time.perf_counter()
+    launches = _dryrun_vs_card(g)
+    took["Y1"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    _dryrun_cli()
+    took["Y2"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    _dryrun_t1(t1_peak)
+    took["Y3"] = round(time.perf_counter() - t, 1)
+    print(f"[dryrun] phase (Y) took {time.perf_counter() - t0:.1f} s "
+          f"({took} s)", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -4260,7 +4446,8 @@ def main() -> int:
     by_path["autoint_cells"] = phase_autoint_cells()
     print(f"[lm] phase (L) took {time.perf_counter() - t_lm:.1f} s",
           flush=True)
-    by_path["train"] = phase_train()
+    by_path["train"], t1_peak = phase_train()
+    by_path["dryrun"] = phase_dryrun(g, t1_peak)
     for path in ("lm_serve", "autoint_cells", "train"):
         if any(by_path[path].values()):
             raise AssertionError(f"{path} launched a counting kernel: "

@@ -1,2 +1,2 @@
-"""Analysis of measured kernel runs (the JAX package's ``analysis/``, the
-part the port's kernels need)."""
+"""Analysis: measured kernel runs against the card's roofline, and the
+dry run's traced steps (the JAX package's ``analysis/``)."""

@@ -1,26 +1,123 @@
-"""Kernel roofline: where one measured kernel launch sits against the card.
+"""Roofline analysis: a traced step's terms, and measured kernel placement.
 
-An own copy of the kernel half of the JAX package's
-``analysis/roofline.py`` (:class:`KernelRoofline`, :func:`spmm_ema_flops`,
-:func:`spmm_ema_hbm_bytes`), with the same formulas and field names. The
-peaks are arguments, never constants of some chip: ``chip_smoke.py``
+Two layers live here, as in the JAX package's ``analysis/roofline.py``.
+
+The kernel half (:class:`KernelRoofline`, :func:`spmm_ema_flops`,
+:func:`spmm_ema_hbm_bytes`) has the reference's formulas and field names.
+Its peaks are arguments, never constants of some chip: ``chip_smoke.py``
 measures the card's memory rate (the larger of a copy's and a read's) and
 f32 rate and passes them here, and takes every eMA, fused and group
-kernel's bytes and flops from the two functions below, so a fraction is
-read against what this card delivers, with its power limit beside it.
-:func:`model_flops` is the reference's formula for a train or serve step's
-useful flops (``6 * N * tokens`` for a dense LM), which the card's
-training rows divide by their measured time. The HLO half of the
-reference (roofline terms of a compiled artifact) serves its dry-run
-launcher, which the port does not have yet.
+kernel's bytes and flops from the two functions, so a fraction is read
+against what this card delivers, with its power limit beside it.
+:func:`model_flops` is the reference's formula for a train or serve
+step's useful flops (``6 * N * tokens`` for a dense LM).
+
+The step half (:class:`RooflineTerms`, :func:`roofline_from_trace`)
+serves the dry run (``launch/dryrun``): rank 0's flops, bytes accessed
+and collective bytes of one traced step (``analysis/hlo``) over one
+card's peaks,
+
+    compute    = flops / peak_flops
+    memory     = bytes_accessed / mem_bw
+    collective = collective_bytes / link_bw
+
+the dominant term and the perfect-overlap bound (the largest). The
+counts are per rank already, so they divide by one card's peaks, as the
+reference's per-device HLO counts do. The peaks are the fields of a
+:class:`Peaks`; :data:`H100_SXM` is the card's data sheet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["KernelRoofline", "spmm_ema_flops", "spmm_ema_hbm_bytes",
+__all__ = ["RooflineTerms", "Peaks", "H100_SXM", "roofline_from_trace",
+           "KernelRoofline", "spmm_ema_flops", "spmm_ema_hbm_bytes",
            "model_flops"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    """One card's peak rates: ``flops`` a second, device-memory bytes a
+    second (``mem_bw``) and interconnect bytes a second (``link_bw``)."""
+
+    name: str
+    flops: float
+    mem_bw: float
+    link_bw: float
+
+
+# NVIDIA H100 SXM5 80 GB, from NVIDIA's H100 Tensor Core GPU data sheet:
+# BF16 tensor cores 1,979 TFLOP/s with sparsity, so 989.5 dense; HBM3
+# 3.35 TB/s; NVLink 4 900 GB/s both directions together, so 450 GB/s each
+H100_SXM = Peaks("H100 SXM5 80GB data sheet (bf16 dense tensor cores, "
+                 "HBM3, NVLink 4 per direction)",
+                 flops=989.5e12, mem_bw=3.35e12, link_bw=450e9)
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    """A step's roofline terms on one card: the reference's fields,
+    properties and ``as_dict`` keys, with the peaks as fields."""
+
+    flops: float
+    bytes_accessed: float
+    collective_bytes: float
+    chips: int
+    peak_flops: float = H100_SXM.flops
+    mem_bw: float = H100_SXM.mem_bw
+    link_bw: float = H100_SXM.link_bw
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / self.peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_accessed / self.mem_bw
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / self.link_bw
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Perfect-overlap lower bound: max of the three terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def compute_fraction(self) -> float:
+        """Fraction of roofline-limited time spent on the compute term —
+        1.0 means perfectly compute-bound (the ideal for training)."""
+        t = self.step_time_s
+        return self.compute_s / t if t > 0 else 0.0
+
+    def as_dict(self) -> dict:
+        return {
+            "flops": self.flops, "bytes": self.bytes_accessed,
+            "collective_bytes": self.collective_bytes, "chips": self.chips,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "step_time_s": self.step_time_s,
+        }
+
+
+def roofline_from_trace(trace, chips: int,
+                        peaks: Peaks = H100_SXM) -> RooflineTerms:
+    """The terms of a traced step (``analysis/hlo.StepTrace``): rank 0's
+    flops, bytes accessed and collective bytes over ``peaks``; the
+    counterpart of the reference's ``roofline_from_compiled``."""
+    from repro_torch.analysis.hlo import collective_bytes
+    return RooflineTerms(
+        flops=float(trace.flops), bytes_accessed=float(trace.bytes_accessed),
+        collective_bytes=float(collective_bytes(trace)), chips=chips,
+        peak_flops=peaks.flops, mem_bw=peaks.mem_bw, link_bw=peaks.link_bw)
 
 
 @dataclasses.dataclass

@@ -47,7 +47,7 @@ import torch.distributed as dist
 from repro_torch.core import colorsets as cs
 from repro_torch.core import executor as pexec
 from repro_torch.core.templates import TreeTemplate, as_template
-from repro_torch.device import resolve_device
+from repro_torch.device import faking, resolve_device
 from repro_torch.graph.coloring import _fold_in, _key, _randint
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.ema import ops as ema_ops
@@ -76,21 +76,26 @@ def _stream_id(seed: int, iteration: int) -> int:
     return _int32(int(seed) * _STREAM + int(iteration))
 
 
-def coloring_for_seed(seed: int, n_pad: int, n_true: int, k: int,
+def coloring_for_seed(seed, n_pad: int, n_true: int, k: int,
                       device=None) -> torch.Tensor:
     """Global ``(n_pad,)`` int32 coloring for a stream id:
     ``randint(fold_in(PRNGKey(0), seed), (n_pad,), 0, k)``, bit for bit
     with the reference, and color ``k + 1`` (no leaf row's) on the padding
     vertices ``n_true:``. Mesh-shape independent. ``seed`` is a uint32 or
     an int32 (read as its bits, as the reference's int32 stream ids are);
-    anything else raises ``OverflowError``. ``device=None`` is CUDA."""
-    seed = int(seed)
-    if not _INT32[0] <= seed < 1 << 32:
-        raise OverflowError(f"Python integer {seed} out of bounds for "
-                            f"uint32")
+    anything else raises ``OverflowError``. A 0-d integer tensor on
+    ``device`` is taken as it is, never read on the host (a traced step's
+    seed). ``device=None`` is CUDA."""
     device = resolve_device(device)
-    key = _fold_in(_key(0, device),
-                   torch.tensor(seed, dtype=torch.int64, device=device))
+    if isinstance(seed, torch.Tensor):
+        data = seed.to(torch.int64)
+    else:
+        seed = int(seed)
+        if not _INT32[0] <= seed < 1 << 32:
+            raise OverflowError(f"Python integer {seed} out of bounds for "
+                                f"uint32")
+        data = torch.tensor(seed, dtype=torch.int64, device=device)
+    key = _fold_in(_key(0, device), data)
     colors = _randint(key.reshape(1, 2), n_pad, k)[0]
     vid = torch.arange(n_pad, device=device)
     return torch.where(vid < n_true, colors,
@@ -233,15 +238,18 @@ class DistributedPgbsc:
     each, a Python loop over pod rounds: there is no compiled batch to pad
     to (the reference's ``lax.scan`` over ``batch_size`` rounds and its
     memory-budget rule), so a rank holds one coloring's tables at a time.
+
+    ``g=None`` with ``abstract_dims={"n", "e"[, "e_max",
+    "hub_segments"]}`` is the dry run's abstract mode (the reference's):
+    built inside a ``FakeTensorMode`` over a mesh of a ``"fake"`` process
+    group, its ring operands are fake gather operands of the reference's
+    shapes (:meth:`_abstract_ring`), its device ``cuda`` with no card, and
+    :meth:`count_step_fn` gives the walk to trace
+    (``launch/dryrun.trace_pgbsc``).
     """
 
     def __init__(self, g: Graph | None, template, mesh, *,
-                 plan: str = "dedup"):
-        if g is None:
-            raise NotImplementedError(
-                "the abstract (dry-run) mode waits for the port of the "
-                "dry-run launcher (ROADMAP.md, Queue 1 item 3); pass a "
-                "Graph")
+                 plan: str = "dedup", abstract_dims: dict | None = None):
         template: TreeTemplate = as_template(template)
         self.template = template
         self.k = template.k
@@ -251,9 +259,17 @@ class DistributedPgbsc:
             raise ValueError(f"mesh axes must be ('data', 'model') or "
                              f"('pod', 'data', 'model'), got {self.axes}")
         self.has_pod = len(self.axes) == 3
+        self.abstract = g is None
+        if self.abstract and abstract_dims is None:
+            raise ValueError("pass a Graph, or abstract_dims with 'n' and "
+                             "'e' for the dry run's shapes")
         dev = resolve_device(mesh.device_type)
-        self.device = (torch.device("cuda", torch.cuda.current_device())
-                       if dev.type == "cuda" else dev)
+        if dev.type != "cuda":
+            self.device = dev
+        elif faking():    # a traced step: fake CUDA tensors, no card
+            self.device = torch.device("cuda", 0)
+        else:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.groups = {a: mesh.get_group(a) for a in self.axes}
         self.d_data = mesh.size(self.axes.index("data"))
         self.d_model = mesh.size(self.axes.index("model"))
@@ -268,30 +284,80 @@ class DistributedPgbsc:
         self.exec_schedule = pexec.compute_schedule(self.plan, self.k,
                                                     passive_cache=True)
 
-        ring = build_ring_edges(g, self.d_data)
-        self.n_pad, self.block = int(ring["n_pad"]), int(ring["block"])
-        self.n_true = g.n
-        # my data row of the edge arrays, as the ring's operand for each
-        # source block s: the edges of that block into my shard, in the
-        # arrays' order (the row's first `counts[s]` slots)
-        src_l, dst_l = (ring[key][self.my_data]
-                        for key in ("src_local", "dst_local"))
-        counts = ring["mask"][self.my_data].sum(axis=1).astype(np.int64)
-        self.ring_preps = [
-            spmm_ops.gather_prep_from_edges(
-                self.block, src_l[s, :counts[s]], dst_l[s, :counts[s]],
-                device=self.device)
-            for s in range(self.d_data)]
-        del ring
+        if self.abstract:
+            self.ring_preps = self._abstract_ring(abstract_dims)
+        else:
+            self.ring_preps = self._ring(g)
         self.ring_ranks = dist.get_process_group_ranks(self.groups["data"])
 
         self.meta = shard_plan(self.plan, self.k, self.d_model)
         # the split tables each node's eMA form reads, on the device once
         self.splits = {
-            idx: tuple(torch.as_tensor(t, device=self.device)
+            idx: tuple(self._on_device(t)
                        for t in local_splits(self.meta, idx, self.d_model,
                                              self.my_model))
             for idx, m in enumerate(self.meta) if m.collective is not None}
+
+    def _ring(self, g: Graph) -> list:
+        """My data row of the ring's edge arrays, as the ring's operand
+        for each source block s: the edges of that block into my shard, in
+        the arrays' order (the row's first ``counts[s]`` slots)."""
+        ring = build_ring_edges(g, self.d_data)
+        self.n_pad, self.block = int(ring["n_pad"]), int(ring["block"])
+        self.n_true = g.n
+        src_l, dst_l = (ring[key][self.my_data]
+                        for key in ("src_local", "dst_local"))
+        counts = ring["mask"][self.my_data].sum(axis=1).astype(np.int64)
+        return [spmm_ops.gather_prep_from_edges(
+                    self.block, src_l[s, :counts[s]], dst_l[s, :counts[s]],
+                    device=self.device)
+                for s in range(self.d_data)]
+
+    def _abstract_ring(self, dims: dict) -> list:
+        """The dry run's ring operands (the reference's abstract shapes):
+        ``block = ceil(n / (d_data * 128)) * 128`` vertices a shard, and
+        for each source block a gather operand of ``e_max`` edges (given,
+        else ``1.3 * e / d_data**2 + 1``) with ``hub_segments`` hub
+        segments (default 0; hubs of two segments, the fewest a hub has),
+        its tensors empty: only their shapes and dtypes are read, under a
+        fake mode."""
+        n, e = int(dims["n"]), int(dims["e"])
+        self.block = -(-n // (self.d_data * 128)) * 128
+        self.n_pad = self.block * self.d_data
+        self.n_true = n
+        e_max = (int(dims["e_max"]) if "e_max" in dims
+                 else int(1.3 * e / self.d_data ** 2 + 1))
+        n_seg = int(dims.get("hub_segments", 0))
+        n_hubs = n_seg // 2
+        tile = 128
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        return [spmm_ops.GatherPrep(
+                    n=self.block, src=empty(e_max, torch.int32),
+                    row_ptr=empty(self.block + 1, torch.int64),
+                    tile_ptr=empty(-(-self.block // tile) + 1, torch.int64),
+                    tile=tile, hub_degree=spmm_ops.HUB_DEGREE,
+                    hub_vertex=empty(n_hubs, torch.int32),
+                    hub_seg_ptr=empty(n_hubs + 1, torch.int32),
+                    seg=empty((n_seg, 2), torch.int64))
+                for _ in range(self.d_data)]
+
+    def _on_device(self, table: np.ndarray) -> torch.Tensor:
+        """A host table on the device; in the abstract mode an empty one of
+        its shape and dtype."""
+        if self.abstract:
+            return torch.empty(table.shape, dtype=torch.int32,
+                               device=self.device)
+        return torch.as_tensor(table, device=self.device)
+
+    def operands(self) -> list:
+        """The tensors a rank holds across colorings: its ring operands
+        and split tables (a traced step's arguments)."""
+        return [t for p in self.ring_preps
+                for t in (p.src, p.row_ptr, p.tile_ptr, p.hub_vertex,
+                          p.hub_seg_ptr, p.seg)] + [
+            t for pair in self.splits.values() for t in pair]
 
     # ---------------------------------------------------------------- local
     def _my_rows(self, width_pad: int) -> slice:
@@ -415,11 +481,10 @@ class DistributedPgbsc:
         # kept in float32, as CountingEngine's totals are
         return total.to(torch.float32).to(torch.float64)
 
-    def _my_coloring(self, sid: int) -> torch.Tensor:
+    def _my_coloring(self, sid) -> torch.Tensor:
         colors = coloring_for_seed(sid, self.n_pad, self.n_true, self.k,
                                    device=self.device)
-        lo = self.my_data * self.block
-        return colors[lo:lo + self.block]
+        return colors.narrow(0, self.my_data * self.block, self.block)
 
     def _pod_rounds(self, seed_mat: list[list[int]]) -> list[list[float]]:
         """``(rounds, n_pods)`` stream ids -> their sums, each pod running
@@ -435,10 +500,25 @@ class DistributedPgbsc:
         return out.reshape(self.n_pods, -1).t().cpu().tolist()
 
     # ------------------------------------------------------------------ api
+    def count_step_fn(self):
+        """-> ``(step, (seed,))``: ``step(seed)`` is my pod's walk of one
+        coloring, ``_count_one`` after ``_my_coloring``, the counterpart of
+        the reference's ``count_step_fn`` that the dry run traces. ``seed``
+        is a 0-d int64 stream id on the device (my pod's, ``my_pod``);
+        the result is the coloring's colorful sum, a float64 ``()`` on the
+        device. Nothing is read on the host, so the walk traces on fake
+        tensors; every rank calls it, as every rank calls ``count_step``."""
+        seed = torch.tensor(self.my_pod, dtype=torch.int64,
+                            device=self.device)
+        return self._count_seed, (seed,)
+
+    def _count_seed(self, seed: torch.Tensor) -> torch.Tensor:
+        return self._count_one(self._my_coloring(seed))
+
     def count_step(self, seeds) -> list[float]:
         """One coloring per pod: ``seeds`` are the ``n_pods`` stream ids
         (int32), the result their colorful sums, the same on every rank
-        (the counterpart of the reference's ``count_step_fn``)."""
+        (the host-side counterpart of :meth:`count_step_fn`)."""
         seeds = [_int32(s) for s in seeds]
         if len(seeds) != self.n_pods:
             raise ValueError(f"{len(seeds)} seeds for {self.n_pods} pods")

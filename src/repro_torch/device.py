@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "accum_dtype", "card_dtype_code", "CARD_DTYPES"]
+__all__ = ["resolve_device", "faking", "accum_dtype", "card_dtype_code",
+           "CARD_DTYPES"]
 
 # storage dtype -> accumulator dtype of the CUDA kernels. bf16 tables
 # accumulate in f32 and are rounded once, at the store; no other dtype runs
@@ -19,13 +20,28 @@ CARD_DTYPES = {torch.float32: torch.float32, torch.bfloat16: torch.float32}
 _CODES = {dt: code for code, dt in enumerate(CARD_DTYPES)}
 
 
+def faking() -> bool:
+    """True while nothing real runs: a ``FakeTensorMode`` is active, or
+    the default process group is the ``"fake"`` backend (the dry run's,
+    ``launch/dryrun``). A CUDA device then needs no card."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if any(isinstance(m, FakeTensorMode)
+           for m in _get_current_dispatch_mode_stack()):
+        return True
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "fake")
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; raises ``RuntimeError`` for a CUDA device when
-    no card is present."""
+    no card is present, unless nothing real runs (:func:`faking`)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() \
+            and not faking():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions of the kernels")

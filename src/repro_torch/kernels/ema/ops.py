@@ -24,10 +24,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.analysis.hlo import note_scratch
 from repro_torch.device import accum_dtype, card_dtype_code
 from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as _autotune
@@ -123,15 +126,21 @@ def _check(m_a, y_p, ia, ip) -> None:
     card_dtype_code(m_a.dtype)
 
 
+def _pairs_scratch(ia: torch.Tensor) -> torch.Tensor:
+    """The staged path's split table for one launch: two terms' row
+    offsets to an int4."""
+    s, l = ia.shape
+    return torch.empty(s * ((l + 1) // 2) * 4, dtype=torch.int32,
+                       device=ia.device)
+
+
 def _launch(m_a, y_p, ia, ip, shape, out) -> torch.Tensor:
-    """One launch of ``csrc/ema.cu`` at ``shape`` into ``out``; counts
-    nothing."""
+    """One launch of ``csrc/ema.cu`` at ``shape`` into ``out``, with its
+    own split-pair scratch; counts nothing."""
     s, l = ia.shape
     n = m_a.shape[-1]
     batch = m_a.numel() // max(1, m_a.shape[-2] * n)
-    # the staged path's split table: two terms' row offsets to an int4
-    pairs = torch.empty(s * ((l + 1) // 2) * 4, dtype=torch.int32,
-                        device=m_a.device)
+    pairs = _pairs_scratch(ia)
     fn = _build.kernel("rt_ema", [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -146,16 +155,51 @@ def _launch(m_a, y_p, ia, ip, shape, out) -> torch.Tensor:
 
 
 def _empty_out(m_a, ia) -> torch.Tensor:
+    """The eMA's output, ``(..., S, N)`` in ``m_a``'s dtype on its device:
+    the op's CUDA and fake implementations both allocate it here."""
     return torch.empty(m_a.shape[:-2] + (ia.shape[0], m_a.shape[-1]),
                        dtype=m_a.dtype, device=m_a.device)
+
+
+# repro_torch::ema, registered through the low-level library API (see
+# kernels/spmm/ops.py's repro_torch::spmm_gather)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ema(Tensor m_a, Tensor y_p, Tensor ia, Tensor ip, "
+            "int s_block, int n_block) -> Tensor")
+
+
+def _ema_cuda(m_a, y_p, ia, ip, s_block, n_block):
+    """``repro_torch::ema`` on the card: one launch of the eMA kernel at
+    ``(s_block, n_block)`` into a new output (:func:`_empty_out`),
+    counted in ``ema.launches``."""
+    out = _launch(m_a, y_p, ia, ip, (s_block, n_block), _empty_out(m_a, ia))
+    ema.launches += 1
+    return out
+
+
+_LIB.impl("ema", _ema_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ema", lib=_LIB)
+def _(m_a, y_p, ia, ip, s_block, n_block):
+    out = _empty_out(m_a, ia)
+    note_scratch(out, _pairs_scratch(ia))   # the CUDA path's, beside it
+    return out
+
+
+@register_flop_formula(torch.ops.repro_torch.ema, get_raw=True)
+def _ema_flops(m_a, y_p, ia, *args, out_val=None, **kwargs) -> int:
+    """The reference's count: 2 flops a (vertex, output row, split) of
+    every table of the batch."""
+    s, l = ia.shape
+    return 2 * (m_a.numel() // max(1, m_a.shape[-2])) * s * l
 
 
 def ema_sweep_launch(m_a, y_p, ia, ip, s_block: int, n_block: int,
                      out: torch.Tensor):
     """The autotuner's runner at one shape: a zero-argument callable that
-    launches the kernel into ``out`` (the wrapper's own output, which its
-    launch then overwrites, so a sweep takes no memory of its own), each
-    launch counted in ``ema.sweep_launches``."""
+    launches the kernel into ``out`` (a table the op's output then takes
+    the place of), each launch counted in ``ema.sweep_launches``."""
 
     def run():
         _launch(m_a, y_p, ia, ip, (s_block, n_block), out)
@@ -168,7 +212,9 @@ def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
         n_block: int | None = None, autotune: bool = False) -> torch.Tensor:
     """eMA of ``(..., Ca, N)`` and ``(..., Cp, N)`` tables with ``(S, L)``
     int32 split tables: the plain version on CPU tensors, one launch of the
-    CUDA kernel on CUDA tensors.
+    CUDA kernel on CUDA tensors, through the op ``repro_torch::ema``. A
+    fake CUDA table (a traced step, ``analysis/hlo``) takes the same path
+    to the op's fake implementation, which launches nothing.
 
     ``(s_block, n_block)`` is the launch shape, the reference's keywords
     with the port's meanings: the output rows and the columns a CUDA block
@@ -183,13 +229,12 @@ def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
     if m_a.device.type == "cpu":
         return ema_plain(m_a, y_p, ia, ip)
     _check(m_a, y_p, ia, ip)
-    out = _empty_out(m_a, ia)
-    if out.numel() == 0:
-        return out
     s, l = ia.shape
     c_a, c_p = m_a.shape[-2], y_p.shape[-2]
+    if math.prod(m_a.shape[:-2]) * s * m_a.shape[-1] == 0:
+        return _empty_out(m_a, ia)
     if autotune and (s_block is None or n_block is None):
-        s_block, n_block = _autotune.ema_blocks(m_a, y_p, ia, ip, out=out)
+        s_block, n_block = _autotune.ema_blocks(m_a, y_p, ia, ip)
     path = ema_path(c_a, c_p, s, m_a.dtype)
     default = ((0, _STAGED_W[0]) if path == "staged"
                else (_DIRECT_ROWS[0], _DIRECT_COLS))
@@ -198,9 +243,7 @@ def ema(m_a: torch.Tensor, y_p: torch.Tensor, ia: torch.Tensor,
     if not _shape_fits(c_a, c_p, s, l, m_a.dtype, shape):
         raise ValueError(f"ema: the {path} path cannot launch (s_block, "
                          f"n_block) = {shape} here")
-    _launch(m_a, y_p, ia, ip, shape, out)
-    ema.launches += 1
-    return out
+    return torch.ops.repro_torch.ema(m_a, y_p, ia, ip, *shape)
 
 
 ema.launches = 0

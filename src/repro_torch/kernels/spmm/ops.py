@@ -51,7 +51,9 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.analysis.hlo import note_scratch
 from repro_torch.device import accum_dtype, card_dtype_code, resolve_device
 from repro_torch.graph.structure import Graph, block_nonzero_index
 from repro_torch.kernels import _build
@@ -607,17 +609,33 @@ def gather_shapes(prep: GatherPrep, candidates=GATHER_DESTS
                  and seg_blocks + -(-prep.n // d) <= _MAX_GRID_X)
 
 
-def _gather_launch(m: torch.Tensor, prep: GatherPrep, dests: int,
-                   out: torch.Tensor) -> torch.Tensor:
-    """One call of ``csrc/spmm_gather.cu`` at ``dests`` destinations a
-    block into ``out``; counts nothing."""
-    rows = m.numel() // max(1, m.shape[-1])
-    # the kernel's scratch (scratch_bytes): one vertex-major row chunk and
-    # the hubs' partial sums, from the caching allocator
+def gather_out(m: torch.Tensor) -> torch.Tensor:
+    """The gather SpMM's output for a ``(..., C, N)`` table: ``m``'s
+    shape, dtype and device. The op's CUDA and fake implementations both
+    allocate it here."""
+    return torch.empty_like(m, memory_format=torch.contiguous_format)
+
+
+def gather_scratch(m: torch.Tensor, n_segments: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch for one call (:meth:`GatherPrep.scratch_bytes`),
+    allocated after the output and freed when the call returns: one
+    vertex-major ``(n, 128 / itemsize)`` row chunk in ``m``'s dtype and
+    the hubs' f32 partial sums, from the caching allocator."""
     chunk = _GATHER_LINE // m.element_size()
-    scratch = torch.empty((prep.n, chunk), dtype=m.dtype, device=m.device)
-    partials = torch.empty((prep.n_segments, chunk),
-                           dtype=torch.float32, device=m.device)
+    return (torch.empty((m.shape[-1], chunk), dtype=m.dtype,
+                        device=m.device),
+            torch.empty((n_segments, chunk), dtype=torch.float32,
+                        device=m.device))
+
+
+def _gather_launch(m, src, row_ptr, hub_vertex, hub_seg_ptr, seg,
+                   hub_degree: int, dests: int, out) -> torch.Tensor:
+    """One call of ``csrc/spmm_gather.cu`` at ``dests`` destinations a
+    block into ``out``, with its own scratch; counts nothing."""
+    n = m.shape[-1]
+    rows = m.numel() // max(1, n)
+    scratch, partials = gather_scratch(m, int(seg.shape[0]))
     fn = _build.kernel("rt_spmm_gather", [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -626,12 +644,51 @@ def _gather_launch(m: torch.Tensor, prep: GatherPrep, dests: int,
         ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(m.device).cuda_stream
     _build.check("spmm_gather", fn(
-        card_dtype_code(m.dtype), dests, m.data_ptr(), rows, prep.n,
-        prep.src.data_ptr(), prep.row_ptr.data_ptr(), prep.hub_degree,
-        prep.seg.data_ptr(), prep.n_segments, prep.hub_vertex.data_ptr(),
-        prep.hub_seg_ptr.data_ptr(), prep.n_hubs, scratch.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), stream))
+        card_dtype_code(m.dtype), dests, m.data_ptr(), rows, n,
+        src.data_ptr(), row_ptr.data_ptr(), hub_degree, seg.data_ptr(),
+        int(seg.shape[0]), hub_vertex.data_ptr(), hub_seg_ptr.data_ptr(),
+        int(hub_vertex.numel()), scratch.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), stream))
     return out
+
+
+# repro_torch::spmm_gather, registered through the low-level library API:
+# a custom_op's first call imports torch._dynamo (seconds) and its calls
+# cost about three times as much dispatch
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("spmm_gather(Tensor m, Tensor src, Tensor row_ptr, "
+            "Tensor hub_vertex, Tensor hub_seg_ptr, Tensor seg, "
+            "int hub_degree, int c_block) -> Tensor")
+
+
+def _spmm_gather_cuda(m, src, row_ptr, hub_vertex, hub_seg_ptr, seg,
+                      hub_degree, c_block):
+    """``repro_torch::spmm_gather`` on the card: one launch of the gather
+    kernel on the prep's tensors at ``c_block`` destinations a block into
+    a new output (:func:`gather_out`), counted in
+    ``spmm_gather.launches``."""
+    out = _gather_launch(m, src, row_ptr, hub_vertex, hub_seg_ptr, seg,
+                         hub_degree, c_block, gather_out(m))
+    spmm_gather.launches += 1
+    return out
+
+
+_LIB.impl("spmm_gather", _spmm_gather_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::spmm_gather", lib=_LIB)
+def _(m, src, row_ptr, hub_vertex, hub_seg_ptr, seg, hub_degree, c_block):
+    out = gather_out(m)
+    # the scratch the CUDA path holds beside its output, for a traced
+    # step's temporary bytes
+    note_scratch(out, *gather_scratch(m, int(seg.shape[0])))
+    return out
+
+
+@register_flop_formula(torch.ops.repro_torch.spmm_gather, get_raw=True)
+def _spmm_gather_flops(m, src, *args, out_val=None, **kwargs) -> int:
+    """The reference's nnz-based count: 2 flops an edge a table row."""
+    return 2 * src.numel() * (m.numel() // max(1, m.shape[-1]))
 
 
 def _gather_sweep(m: torch.Tensor, prep: GatherPrep, out: torch.Tensor):
@@ -640,7 +697,8 @@ def _gather_sweep(m: torch.Tensor, prep: GatherPrep, out: torch.Tensor):
     ``spmm_gather.sweep_launches``."""
 
     def run(d):
-        _gather_launch(m, prep, d, out)
+        _gather_launch(m, prep.src, prep.row_ptr, prep.hub_vertex,
+                       prep.hub_seg_ptr, prep.seg, prep.hub_degree, d, out)
         spmm_gather.sweep_launches += 1
     return run
 
@@ -650,9 +708,11 @@ def spmm_gather(m: torch.Tensor, prep: GatherPrep, *,
                 autotune: bool = False) -> torch.Tensor:
     """``Y = M @ A`` over the edge stream for a ``(..., C, N)`` table: the
     plain version on a CPU tensor, one call of ``csrc/spmm_gather.cu`` on
-    a CUDA tensor (its kernels once per chunk of rows), at ``c_block``
-    destinations a gather block (default 128), or the autotuner's choice
-    with ``autotune=True``."""
+    a CUDA tensor (its kernels once per chunk of rows), through the op
+    ``repro_torch::spmm_gather``, at ``c_block`` destinations a gather
+    block (default 128), or the autotuner's choice with ``autotune=True``.
+    A fake CUDA table (a traced step, ``analysis/hlo``) takes the same
+    path to the op's fake implementation, which launches nothing."""
     if m.device.type == "cpu":
         return spmm_gather_plain(m, prep)
     if m.device != prep.device:
@@ -665,14 +725,15 @@ def spmm_gather(m: torch.Tensor, prep: GatherPrep, *,
                          f"the graph {prep.n}")
     card_dtype_code(m.dtype)
     rows = m.numel() // max(1, m.shape[-1])
-    out = torch.empty_like(m)
     if rows == 0 or prep.n == 0:
-        return out
+        return gather_out(m)
     if c_block is None:
         c_block = GATHER_DESTS_DEFAULT
         if autotune:
+            # the sweep launches into a table the op's output then takes
+            # the place of, so the call's peak does not grow
             c_block = _autotune.spmm_c_block(
-                m, _gather_sweep(m, prep, out), kind="gather",
+                m, _gather_sweep(m, prep, gather_out(m)), kind="gather",
                 operand=(int(prep.src.numel()), prep.n_segments),
                 reorder=prep.reorder,
                 candidates=gather_shapes(
@@ -680,9 +741,9 @@ def spmm_gather(m: torch.Tensor, prep: GatherPrep, *,
     elif c_block not in gather_shapes(prep, (c_block,)):
         raise ValueError(f"spmm_gather: cannot launch {c_block} "
                          f"destinations a block; it compiles {GATHER_DESTS}")
-    _gather_launch(m, prep, c_block, out)
-    spmm_gather.launches += 1
-    return out
+    return torch.ops.repro_torch.spmm_gather(
+        m, prep.src, prep.row_ptr, prep.hub_vertex, prep.hub_seg_ptr,
+        prep.seg, prep.hub_degree, c_block)
 
 
 spmm_gather.launches = 0

@@ -58,9 +58,19 @@ def segment_sum(data, segment_ids, num_segments: int):
     return _SegmentSum.apply(data, segment_ids, num_segments)
 
 
+def segment_counts(segment_ids, num_segments: int) -> torch.Tensor:
+    """Rows per segment, int64 (``bincount`` with ``minlength`` of ids
+    below ``num_segments``), as an ``index_add_`` of ones: its output's
+    shape does not depend on the ids' values, which a traced step
+    (``analysis/hlo``) needs."""
+    return torch.zeros(num_segments, dtype=torch.int64,
+                       device=segment_ids.device).index_add_(
+        0, segment_ids, torch.ones_like(segment_ids, dtype=torch.int64))
+
+
 def _counts(segment_ids, num_segments: int, like):
     """Rows per segment, at least 1, shaped to broadcast over ``like``."""
-    c = torch.bincount(segment_ids, minlength=num_segments).clamp_min(1)
+    c = segment_counts(segment_ids, num_segments).clamp_min(1)
     return c.to(like.dtype).reshape((num_segments,) + (1,) * (like.dim() - 1))
 
 
@@ -225,7 +235,7 @@ class GNN(nn.Module):
             for layer in self.layers:
                 h = layer(h, src, dst)
         elif kind == "pna":
-            deg = torch.bincount(dst, minlength=n).to(torch.float32)[:, None]
+            deg = segment_counts(dst, n).to(torch.float32)[:, None]
             mean_log_deg = torch.log(deg + _PNA_DEGREE_EPS).mean()
             for layer in self.layers:
                 h = layer(h, src, dst, deg, mean_log_deg)

@@ -44,6 +44,61 @@ def draw_normal(shape, scale: float, *, dtype, device, generator):
     return nn.Parameter(w.to(dtype))
 
 
+# ---------------------------------------------------------------- lookups
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with any pending reduction applied. A lookup into a table
+    sharded along its rows (a vocab-sharded embedding on a DTensor mesh)
+    leaves each rank a masked partial sum, which DTensor can reduce only
+    once, while a lookup's output feeds several ops (a norm and the
+    residual): it is reduced here, by adding 0 (not a linear op, so
+    DTensor all-reduces first; the gradient passes as it is, where a
+    ``redistribute``'s backward cannot go back to the masked partial). A
+    plain tensor, or a DTensor with no pending reduction, comes back as
+    it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x + 0
+    return x
+
+
+def write_rows_(cache: torch.Tensor, dim: int, at: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """``cache.index_copy_(dim, at, new)``, in place. On a DTensor cache
+    split along ``dim`` (a sequence-sharded decode cache) each rank writes
+    the rows of ``at`` that fall in its own shard and writes back what it
+    holds elsewhere, as XLA writes a ``dynamic_update_slice`` into a
+    sharded dim: DTensor's own ``index_copy_`` would re-place the cache
+    and leave its shards as they were. A plain tensor takes
+    ``index_copy_`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    split = isinstance(cache, DTensor) and any(
+        isinstance(p, Shard) and p.dim == dim for p in cache.placements)
+    if not split:
+        cache.index_copy_(dim, at, new)
+        return cache
+    mesh, places = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    # this rank's first row along dim (split in mesh order)
+    coord, lo, size = mesh.get_coordinate(), 0, cache.shape[dim]
+    for i, p in enumerate(places):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(i)
+            lo += coord[i] * size
+    rows = local.shape[dim]
+    new_local = new.redistribute(mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in places]).to_local()
+    if isinstance(at, DTensor):
+        at = at.full_tensor()
+    at = at - lo
+    own = ((at >= 0) & (at < rows)).reshape(
+        [-1 if d == dim else 1 for d in range(local.dim())])
+    at = at.clamp(0, rows - 1)
+    local.index_copy_(dim, at, torch.where(
+        own, new_local, local.index_select(dim, at)))
+    return cache
+
+
 # --------------------------------------------------------------------- norms
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, dtype, device):
@@ -277,8 +332,8 @@ def decode_attention(p: Attention, x: torch.Tensor, cache_k, cache_v,
     q, k_new, v_new = _qkv(p, x, positions, theta, use_qk_norm)
 
     at = cache_len.clamp(0, s_max - 1).reshape(1).long()
-    cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, at, v_new.to(cache_v.dtype))
+    write_rows_(cache_k, 1, at, k_new.to(cache_k.dtype))
+    write_rows_(cache_v, 1, at, v_new.to(cache_v.dtype))
 
     logits = _grouped_logits(q, cache_k, n_kv, d_head) * d_head ** -0.5
     kpos = torch.arange(s_max, device=x.device)

@@ -184,7 +184,7 @@ def lm_forward(model: LM, tokens: torch.Tensor, *, q_chunk: int = 1024,
     whose backward sums a repeated token's rows in a fixed order on the
     CPU (an indexed gather's adds in any order)."""
     cfg = model.cfg
-    x = F.embedding(tokens.long(), model.embed)
+    x = L.settle(F.embedding(tokens.long(), model.embed))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     blocks = [(b, 1.0) for b in model.dense_front] + list(zip(
@@ -206,7 +206,8 @@ def lm_loss(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
     gradient), plus ``aux_weight`` times the MoE aux loss."""
     logits, aux = lm_forward(model, tokens)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    tgt_logit = L.settle(
+        logits.gather(-1, targets.long()[..., None]))[..., 0]
     return (lse - tgt_logit).mean() + aux_weight * aux
 
 
@@ -245,7 +246,7 @@ def lm_decode_step(model: LM, cache: dict, token: torch.Tensor,
     ``shard_hints`` is accepted and ignored (one card; see
     :func:`~repro_torch.models.layers.decode_attention`)."""
     cfg = model.cfg
-    x = F.embedding(token.long(), model.embed)
+    x = L.settle(F.embedding(token.long(), model.embed))
     cache_len = cache["len"]
     for i, block in enumerate(model.dense_front):
         x = block.decode(x, cache["k_front"][i], cache["v_front"][i],
@@ -277,7 +278,8 @@ def lm_prefill_chunked(model: LM, tokens: torch.Tensor, cache: dict,
                          f"{chunk}")
     flags = window_flags(cfg, len(model.layers))
     for c0 in range(0, s, chunk):
-        x = F.embedding(tokens[:, c0:c0 + chunk].long(), model.embed)
+        x = L.settle(F.embedding(tokens[:, c0:c0 + chunk].long(),
+                                 model.embed))
         for i, block in enumerate(model.dense_front):
             x = block.prefill(x, cache["k_front"][i], cache["v_front"][i],
                               c0, 1.0)

@@ -41,7 +41,8 @@ __all__ = ["build_train_step", "build_serve_step", "abstract_train_state",
            "concrete_train_state", "loss_fn_for", "init_params_fn",
            "param_specs_for", "state_tree", "state_leaves", "params_tree",
            "load_state_leaves", "grads_of", "accumulate_grads",
-           "tree_leaves"]
+           "tree_leaves", "state_specs", "distribute_state",
+           "distribute_tree"]
 
 _META = torch.device("meta")
 
@@ -286,12 +287,126 @@ def load_state_leaves(state: dict, leaves: list) -> dict:
     return state
 
 
+# ------------------------------------------------------ DTensor placements
+def state_specs(arch: ArchConfig, state: dict, mesh) -> dict:
+    """``{"params": param specs, "opt": ZeRO-1 moment specs}`` of a train
+    state on ``mesh``, in the reference's layout (LM layers stacked)."""
+    pspecs = param_specs_for(arch, state["params"], mesh)
+    return {"params": pspecs,
+            "opt": shd.opt_state_specs(
+                pspecs, params_tree(state["params"], meta=True), mesh)}
+
+
+def _local_shard(t: torch.Tensor, mesh, placements, device) -> torch.Tensor:
+    """An empty tensor on ``device`` (a fake one under a fake mode) of the
+    shape of rank ``mesh.get_coordinate()``'s shard of the meta tensor
+    ``t`` at ``placements`` (dims split in mesh order, divisibility
+    asserted by the specs)."""
+    from torch.distributed.tensor import Shard
+    if t.device.type != "meta":
+        raise ValueError("only an abstract (meta) state or batch is "
+                         "placed on a mesh here")
+    shape = list(t.shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            shape[pl.dim] //= mesh.size(i)
+    return torch.empty(shape, dtype=t.dtype, device=device)
+
+
+def _dtensor(t: torch.Tensor, mesh, spec, device):
+    """The meta tensor ``t`` as a DTensor at ``spec``, this rank's shard
+    an empty tensor on ``device``; a split over a one-rank mesh dim is no
+    split (DTensor would refuse to reshape such a dim). On a one-rank
+    mesh every placement is whole: a plain tensor comes back, as a
+    one-card run holds it."""
+    from torch.distributed.tensor import DTensor, Replicate
+    placements = tuple(
+        Replicate() if mesh.size(i) == 1 else p
+        for i, p in enumerate(shd.spec_to_placements(mesh, spec, t.shape)))
+    local = _local_shard(t, mesh, placements, device)
+    if mesh.size() == 1:
+        return local
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=t.shape,
+                              stride=torch.empty(t.shape,
+                                                 device="meta").stride())
+
+
+def distribute_tree(tree, specs, mesh, device):
+    """A tree of meta tensors (a batch of ``configs/shapes.input_specs``)
+    as DTensors on ``mesh`` at ``specs``, each rank's shard an empty
+    tensor on ``device``; on a one-rank mesh plain tensors. Non-tensor
+    leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], mesh, device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute_tree(v, s, mesh, device)
+                          for v, s in zip(tree, specs))
+    if isinstance(tree, torch.Tensor):
+        return _dtensor(tree, mesh, specs, device)
+    return tree
+
+
+def distribute_state(state: dict, mesh, specs: dict, device) -> dict:
+    """The train state with every parameter and AdamW moment a DTensor on
+    ``mesh`` (a ``DeviceMesh``) at ``specs`` (:func:`state_specs`), in
+    place: each module parameter becomes a DTensor parameter, the
+    optimizer is rebuilt over them with its config and step, and each
+    moment is put at its ZeRO-1 spec. An LM layer's parameter takes its
+    stacked spec without the stacked dim (:func:`_slots`). The state is
+    :func:`abstract_train_state`'s (meta): each rank's shards are empty
+    tensors on ``device`` (fake ones under a fake mode); on a one-rank
+    mesh plain tensors. Returns ``state``."""
+    from repro_torch.configs.shapes import PartitionSpec as P
+    from repro_torch.train.sharding import _spec_leaves
+    model, opt = state["params"], state["opt"]
+    flat = dict(_spec_leaves(specs))
+    by_name = {}
+    for path, slots in _slots(model).items():
+        for name, idx in slots:
+            by_name[name] = (path, idx)
+
+    def spec_of(prefix, name):
+        path, idx = by_name[name]
+        spec = flat[prefix + path]
+        return spec if idx is None else P(*tuple(spec)[1:])
+
+    moments = {name: opt.state[p] for p, name
+               in zip(opt.params(), opt.param_groups[0]["param_names"])}
+    step = opt.param_groups[0]["step"]
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, leaf, nn.Parameter(
+            _dtensor(p, mesh, spec_of(("params",), name), device),
+            requires_grad=p.requires_grad))
+    new = AdamW(model.named_parameters(), opt.cfg)
+    for group in new.param_groups:
+        group["step"] = step
+    for p, name in zip(new.params(), new.param_groups[0]["param_names"]):
+        for k in ("mu", "nu"):
+            new.state[p][k] = _dtensor(moments[name][k], mesh,
+                                       spec_of(("opt", k), name), device)
+    state["opt"] = new
+    return state
+
+
 # ---------------------------------------------------------------- the step
 def _split(x, microbatches: int, i: int):
+    """Microbatch ``i`` of ``microbatches``: rows ``[i * b, (i + 1) * b)``
+    of the leading dim, ``b = len(x) // microbatches`` (the reference's
+    reshape to ``(microbatches, b, ...)`` and its row ``i``). A DTensor's
+    slice comes back on the batch's placements, each rank holding its
+    share of the microbatch."""
     if not isinstance(x, torch.Tensor) or x.dim() == 0:
         return x
-    return x.reshape((microbatches, x.shape[0] // microbatches)
-                     + tuple(x.shape[1:]))[i]
+    size = x.shape[0] // microbatches
+    part = x.narrow(0, i * size, size)
+    placements = getattr(x, "placements", None)
+    if placements is not None and part.placements != placements:
+        part = part.redistribute(x.device_mesh, placements)
+    return part
 
 
 def grads_of(loss_fn, model: nn.Module, params: list, batch: dict):
@@ -311,7 +426,8 @@ def accumulate_grads(loss_fn, model: nn.Module, params: list, batch: dict,
     not through ``.grad``, which torch keeps in a bf16 parameter's dtype,
     and the sums are divided at the end, as the reference's scan with its
     float32 carry does."""
-    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    grads = [torch.zeros_like(p, dtype=torch.float32,
+                              memory_format=torch.contiguous_format)
              for p in params]
     loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
     for i in range(microbatches):

@@ -265,8 +265,13 @@ def test_distributed_pgbsc_device_rule_and_abstract_mode(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tdist.DistributedPgbsc(generators.grid_2d(4, 4), "u3", mesh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    # the abstract mode needs its shapes, and outside a fake mode (and a
+    # fake process group) the device rule holds for it too
+    with pytest.raises(ValueError, match="abstract_dims"):
         tdist.DistributedPgbsc(None, "u3", mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdist.DistributedPgbsc(None, "u3", mesh,
+                               abstract_dims={"n": 64, "e": 256})
 
 
 # ------------------------------------------------------- the rank runs

@@ -1,10 +1,12 @@
-"""Run phases (L) and (T) of ``chip_smoke.py`` alone on one card.
+"""Run phases (L), (T) and (Y) of ``chip_smoke.py`` alone on one card.
 
-    python3 tools/chip_phases.py [L] [T]
+    python3 tools/chip_phases.py [L] [T] [Y]
 
 (L) serves the LMs and AutoInt (L0-L3, without L4), (T) trains (T0-T4);
-neither needs the CUDA kernels built. Both print ``chip_smoke.py``'s own
-lines; TF32 is off, as there.
+neither needs the CUDA kernels built. (Y) builds them, then runs the dry
+run against the card (Y1 on ``grid_2d(1024, 1024)``, Y2; Y3 when (T) ran
+first, beside T1's peak). All print ``chip_smoke.py``'s own lines; TF32
+is off, as there.
 """
 
 import subprocess
@@ -37,8 +39,17 @@ def main(argv=None) -> int:
         cs.phase_lm_consistency()
         cs.phase_lm_serving()
         print(f"[lm] took {time.perf_counter() - t0:.1f} s", flush=True)
+    t1_peak = None
     if "T" in which:
-        print(cs.phase_train(), flush=True)
+        counts, t1_peak = cs.phase_train()
+        print(counts, flush=True)
+    if "Y" in which:
+        from repro_torch.graph.generators import grid_2d
+        cs.phase_build()
+        cs._dryrun_vs_card(grid_2d(1024, 1024))
+        cs._dryrun_cli()
+        if t1_peak is not None:
+            cs._dryrun_t1(t1_peak)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

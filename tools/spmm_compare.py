@@ -169,6 +169,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     sm = _smoke()
+    sm.phase_peaks()        # the kernel rows' measured bounds read PEAKS
     import repro_torch
     print(f"[{args.label}] {sm._device_line()} repro_torch from "
           f"{Path(repro_torch.__file__).parent}", flush=True)
