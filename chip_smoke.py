@@ -4152,7 +4152,7 @@ def phase_train() -> tuple[dict, int]:
     return counts, t1_peak
 
 
-DRYRUN_TIMEOUT_S = 420         # (Y2)'s two launcher runs together
+DRYRUN_TIMEOUT_S = 420         # each of (Y2)'s launcher runs
 DRYRUN_PEAK_SLACK = (0.8, 1.25)  # the reference's own memory slack
 
 
@@ -4235,9 +4235,11 @@ def _dryrun_vs_card(g) -> dict:
 def _dryrun_cli() -> None:
     """(Y2): ``python -m repro_torch.launch.dryrun`` on the card's host,
     as a user runs it: every PGBSC cell on both production meshes, then
-    llama3-8b ``decode_32k`` on the single mesh; each record's flops,
+    llama3-8b ``decode_32k`` and nequip ``ogb_products`` (61.9M edges, a
+    strided shard of split factor ``E / 16``: DTensor's bookkeeping in
+    the tracer's closed forms) on the single mesh; each record's flops,
     bytes and collective bytes a rank, dominant term and trace seconds.
-    Every PGBSC record must be ``ok``."""
+    Every PGBSC record and the nequip one must be ``ok``."""
     import shutil
     import tempfile
 
@@ -4246,6 +4248,8 @@ def _dryrun_cli() -> None:
     try:
         for args in (["--arch", "pgbsc", "--mesh", "both"],
                      ["--arch", "llama3-8b", "--cell", "decode_32k",
+                      "--mesh", "single"],
+                     ["--arch", "nequip", "--cell", "ogb_products",
                       "--mesh", "single"]):
             t0 = time.perf_counter()
             res = subprocess.run(
@@ -4274,12 +4278,15 @@ def _dryrun_cli() -> None:
                   f"step bound {rf['step_time_s']:.6e} s; argument "
                   f"{r['memory']['argument_bytes']} temp "
                   f"{r['memory']['temp_bytes']} B; collectives "
-                  f"{r['collectives']}; trace {r['compile_s']} s",
-                  flush=True)
+                  f"{r['collectives']}; trace {r['compile_s']} s; "
+                  f"bookkeeping {r['bookkeeping_bytes']} B; source "
+                  f"{r['source']}", flush=True)
         pgbsc = [r for r in recs if r["arch"] == "pgbsc"]
         if len(pgbsc) != 8 or not all(r.get("ok") for r in pgbsc):
             states = [(r["cell"], r["mesh"], r.get("ok")) for r in pgbsc]
             raise AssertionError(f"(Y2) PGBSC records: {states}")
+        if not any(r["arch"] == "nequip" and r.get("ok") for r in recs):
+            raise AssertionError("(Y2) nequip ogb_products: no ok record")
     finally:
         shutil.rmtree(out, ignore_errors=True)
 

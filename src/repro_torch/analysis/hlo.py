@@ -16,9 +16,12 @@ op on (returns ``NotImplemented``) and logs only the local ones, so a
 matmul row-sharded four ways counts a quarter of its global flops, as
 the reference's per-device HLO does. The global-shape run that DTensor's
 sharding propagation makes to learn an output's shape, and the index
-math of its redistribution planning, are not logged. An op DTensor has
-no sharding strategy for runs whole on every rank: its inputs gathered,
-as XLA's partitioner replicates what it cannot split.
+math of its redistribution planning, are not logged; a strided shard's
+sizes, offsets and splits run in closed form and the planner's search
+memoized (:func:`_bookkeeping_paused`), with DTensor's own results, so a
+trace's cost does not grow with a sharded dim. An op DTensor has no
+sharding strategy for runs whole on every rank: its inputs gathered, as
+XLA's partitioner replicates what it cannot split.
 
 **Conventions** (the reference's, ``src/repro/analysis/hlo.py``):
 
@@ -47,9 +50,10 @@ as XLA's partitioner replicates what it cannot split.
 partitioner reshards, and the trace reshards there too, the
 redistributions logged: a view that splits a dim held split over a mesh
 dim the new shape does not divide is retried with the dims it changes
-made whole; an op with no sharding strategy (``index_add_``), or an
-in-place op DTensor cannot place (a ``scatter_`` along a split dim), runs
-on every rank on gathered inputs (:attr:`StepTrace.whole` counts them).
+made whole; an op with no sharding strategy (``index_add_``), an
+in-place op DTensor cannot place (a ``scatter_`` along a split dim), or
+one whose sharding propagation fails, runs on every rank on gathered
+inputs (:attr:`StepTrace.whole` counts them).
 A kernel op's fake implementation names the scratch its CUDA path holds
 (:func:`note_scratch`). Without a CUDA build of torch (a CPU wheel) a
 fake CUDA tensor still computes, but ``Tensor.__getitem__`` /
@@ -72,7 +76,7 @@ import weakref
 from collections import defaultdict
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
@@ -158,8 +162,9 @@ class OpRecord:
 @dataclasses.dataclass
 class StepTrace:
     """Rank 0's op log of one traced step and its memory: the bytes of
-    the arguments, of the outputs, and the peak of live storage; and the
-    ops that ran whole for want of a DTensor strategy."""
+    the arguments, of the outputs, and the peak of live storage; the ops
+    that ran whole for want of a DTensor strategy; and the largest real
+    (not fake, not meta) tensor DTensor's unlogged bookkeeping made."""
 
     ops: list = dataclasses.field(default_factory=list)
     # ops DTensor has no strategy for, run whole: {name: times}
@@ -167,6 +172,7 @@ class StepTrace:
     argument_bytes: int = 0
     output_bytes: int = 0
     peak_bytes: int = 0
+    bookkeeping_bytes: int = 0
     seconds: float = 0.0
 
     @property
@@ -316,8 +322,16 @@ class _RankZero(TorchDispatchMode):
                 return self._in_place(func, args, kwargs)
             # DTensor's dispatcher runs the local ops (and the
             # redistributions) under this mode: log those instead
-            return NotImplemented
-        if self.paused or isinstance(func, torch._ops.HigherOrderOperator):
+            return self._split_or_whole(func, args, kwargs)
+        if self.paused:
+            out = func(*args, **kwargs)
+            real = [t.numel() * t.element_size() for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor) and not t.is_meta
+                    and not isinstance(t, FakeTensor)]
+            self.trace.bookkeeping_bytes = max([self.trace.bookkeeping_bytes,
+                                                *real])
+            return out
+        if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
         packet = func._overloadpacket
         if packet not in flop_registry \
@@ -374,6 +388,21 @@ class _RankZero(TorchDispatchMode):
             with self:
                 x = _whole_where_reshaped(args[0], tuple(args[1]))
         return self._redispatch(func, (x,) + tuple(args[1:]), kwargs)
+
+    def _split_or_whole(self, func, args, kwargs):
+        """An op through DTensor, or whole (:meth:`_whole`) where DTensor's
+        sharding propagation refuses it: torch 2.11 refuses an ``index``
+        of a replicated table by ids split over two mesh dims (nequip's
+        species lookup on the multi-pod mesh), which 2.13 splits. What
+        the refused try logged is dropped."""
+        logged = len(self.trace.ops)
+        try:
+            return self._redispatch(func, args, kwargs)
+        except RuntimeError as e:
+            if "Sharding propagation failed" not in str(e):
+                raise
+            del self.trace.ops[logged:]
+        return self._whole(func, args, kwargs)
 
     def _in_place(self, func, args, kwargs):
         """An in-place op through DTensor, or whole (:meth:`_whole`) where
@@ -466,9 +495,19 @@ def _mutates_first(func) -> bool:
 def _bookkeeping_paused(mode: _RankZero):
     """Run DTensor's own bookkeeping outside the trace: its sharding
     propagation (with the global-shape run it makes to learn an output's
-    shape) and its redistribution planning compute with small real
-    tensors (a strided shard's index math reads them on the host), which
-    are not rank 0's step. They run unlogged and outside the fake mode."""
+    shape) and its redistribution planning are not rank 0's step. They
+    run unlogged and outside the fake mode.
+
+    Three parts of it are replaced for the trace by what computes the
+    same results at a cost that does not grow with the tensors: a strided
+    shard's sizes and offsets (:func:`_strided_runs`, where DTensor
+    splits a real ``arange`` over the sharded dim into ``split_factor x
+    num_chunks`` pieces), a strided shard's split of a fake tensor
+    (:func:`_strided_split`, the same ``cat`` a shard without the pieces),
+    and the redistribution planner's next states and their costs,
+    memoized for each planner (:func:`_memo_next_state`; on a 3-D mesh
+    its Dijkstra search otherwise rebuilds them for every pair of specs
+    an op's strategies are costed at)."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     try:
         from torch.distributed.tensor import _redistribute
@@ -478,11 +517,18 @@ def _bookkeeping_paused(mode: _RankZero):
     except ImportError:      # torch without DTensor
         yield
         return
-    targets = [(ShardingPropagator, "propagate_op_sharding_non_cached"),
-               (_redistribute, "_gen_transform_infos_non_cached"),
-               (_StridedShard, "local_shard_size_and_offset")]
-    saved = [(owner, name, inspect.getattr_static(owner, name))
-             for owner, name in targets if hasattr(owner, name)]
+    planner = getattr(_redistribute, "DTensorRedistributePlanner", None)
+    # (owner, name, its closed form or None, whether it runs paused)
+    targets = [(ShardingPropagator, "propagate_op_sharding_non_cached",
+                None, True),
+               (_redistribute, "_gen_transform_infos_non_cached", None, True),
+               (_StridedShard, "local_shard_size_and_offset",
+                _closed_size_and_offset, True),
+               (_StridedShard, "_split_tensor", _strided_split, False),
+               (planner, "get_next_state", _memo_next_state, False)]
+    saved = [(owner, name, inspect.getattr_static(owner, name), closed,
+              pause) for owner, name, closed, pause in targets
+             if owner is not None and hasattr(owner, name)]
 
     def paused(fn):
         if isinstance(fn, staticmethod):
@@ -496,13 +542,125 @@ def _bookkeeping_paused(mode: _RankZero):
             finally:
                 mode.paused -= 1
         return run
-    for owner, name, fn in saved:
-        setattr(owner, name, paused(fn))
+    for owner, name, fn, closed, pause in saved:
+        fn = closed(fn) if closed is not None else fn
+        setattr(owner, name, paused(fn) if pause else fn)
     try:
         yield
     finally:
-        for owner, name, fn in saved:
+        for owner, name, fn, _, _ in saved:
             setattr(owner, name, fn)
+
+
+# ------------------------------------ DTensor's bookkeeping in closed form
+def _strided_runs(split_factor: int, size: int, num_chunks: int,
+                  rank: int) -> list[tuple[int, int, int, int]]:
+    """Where ``_StridedShard(split_factor)`` puts ``rank``'s shard of a dim
+    of ``size`` split ``num_chunks`` ways, as runs ``(first, stride,
+    count, length)``: ``count`` runs of ``length`` indices, the ``j``-th
+    starting at ``first + j * stride``. DTensor's own layout (its
+    ``_split_tensor`` of an ``arange``): ``torch.chunk`` into
+    ``split_factor`` pieces (``q = ceil(size / split_factor)`` each, the
+    last ones shorter or empty), each piece chunked ``num_chunks`` ways,
+    shard ``rank`` the ``rank``-th chunk of every piece in order. The
+    full pieces give one run a piece, the short one at most one more."""
+    q = -(-size // split_factor)
+    full = size // q if q else 0
+    runs = []
+    for piece, first, count in ((q, 0, full), (size - full * q, full * q, 1)):
+        if not (piece and count):
+            continue
+        s = -(-piece // num_chunks)
+        length = min(s, piece - rank * s)
+        if length > 0:
+            runs.append((first + rank * s, q, count, length))
+    return runs
+
+
+def _closed_size_and_offset(fn):
+    """``_StridedShard.local_shard_size_and_offset`` by
+    :func:`_strided_runs`: the shard's size and its first offset (``-1``
+    when it is empty), every offset, or none, as the caller asks (torch
+    2.13: ``offset_mode`` FIRST / ALL / NONE; torch 2.11:
+    ``return_first_offset``). Symbolic sizes go to DTensor's own ``fn``."""
+    import numpy as np
+
+    def local_shard_size_and_offset(self, curr_local_size, num_chunks, rank,
+                                    *args, **kwargs):
+        sf = self.split_factor
+        if not all(type(v) is int
+                   for v in (sf, curr_local_size, num_chunks, rank)):
+            return fn(self, curr_local_size, num_chunks, rank, *args,
+                      **kwargs)
+        (how,) = args or tuple(kwargs.values()) or (True,)
+        if not isinstance(how, bool):           # torch 2.13's enum
+            how = {0: True, 1: False}.get(int(how))
+        runs = _strided_runs(sf, curr_local_size, num_chunks, rank)
+        size = sum(count * length for _, _, count, length in runs)
+        if how is None:
+            return size, None
+        if how:
+            return size, runs[0][0] if runs else -1
+        offsets = [(first + stride * np.arange(count)[:, None]
+                    + np.arange(length)).ravel()
+                   for first, stride, count, length in runs]
+        return size, np.concatenate(offsets).tolist() if offsets else []
+    return local_shard_size_and_offset
+
+
+def _strided_split(fn):
+    """``_StridedShard._split_tensor`` by :func:`_strided_runs`: shard
+    ``i`` is one ``cat`` of its runs' strided views, the one kernel
+    DTensor's loop runs for it (the same bytes), without the loop's
+    ``split_factor x num_chunks`` chunk views and the zero-byte fills of
+    its empty chunks (no kernel on a card). A split whose full and short
+    pieces leave a shard runs of two lengths goes to DTensor's ``fn``."""
+    def _split_tensor(self, tensor, num_chunks, *, with_padding=True,
+                      contiguous=True):
+        sf, dim = self.split_factor, self.dim
+        size = tensor.size(dim) if dim < tensor.dim() else 0
+        layouts = [_strided_runs(sf, size, num_chunks, i)
+                   for i in range(num_chunks)] \
+            if type(sf) is int and type(size) is int and size else None
+        if layouts is None or any(len({r[3] for r in runs}) > 1
+                                  for runs in layouts):
+            return fn(self, tensor, num_chunks, with_padding=with_padding,
+                      contiguous=contiguous)
+        shape, stride = tuple(tensor.shape), tuple(tensor.stride())
+
+        def run(first, step, count, length):
+            return tensor.as_strided(
+                shape[:dim] + (count, length) + shape[dim + 1:],
+                stride[:dim] + (step * stride[dim], stride[dim])
+                + stride[dim + 1:],
+                tensor.storage_offset() + first * stride[dim])
+        shards = [torch.cat([run(*r) for r in runs], dim).flatten(dim, dim + 1)
+                  if runs else torch.cat([tensor.narrow(dim, 0, 0)], dim)
+                  for runs in layouts]
+        if not with_padding:
+            return shards, []
+        most = max(t.size(dim) for t in shards)
+        return shards, [most - t.size(dim) for t in shards]
+    return _split_tensor
+
+
+def _memo_next_state(fn):
+    """The planner's ``get_next_state``, memoized for each planner (one a
+    mesh and tensor meta) by the state and the target sets it reads, in
+    their order (strided shards and partial reductions named by the
+    targets so far): the same states and costs in the same order, each
+    computed once."""
+    memo = weakref.WeakKeyDictionary()
+
+    def get_next_state(self, placements, tensor_mesh_dim_tuple):
+        key = (placements, tensor_mesh_dim_tuple,
+               tuple(getattr(self, "strided_shard_placements_in_target", ())),
+               tuple(getattr(self, "partial_reduce_ops_in_target", ())))
+        seen = memo.setdefault(self, {})
+        if key not in seen:
+            seen[key] = fn(self, placements, tensor_mesh_dim_tuple)
+        return seen[key]
+    return get_next_state
 
 
 # ------------------------------------------ where eager torch cannot follow

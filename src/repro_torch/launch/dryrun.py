@@ -25,7 +25,14 @@ Python loop and every layer is traced (the reference extrapolates from
 two unrolled compiles because XLA counts a scanned layer once); and
 ``peaks`` names the card peaks the roofline divides by; ``ran_whole``
 counts the ops DTensor has no sharding strategy for, which the trace ran
-on gathered inputs on every rank (``analysis/hlo``).
+on gathered inputs on every rank (``analysis/hlo``);
+``bookkeeping_bytes`` is the largest real tensor DTensor's own
+bookkeeping made while the step was traced. Every record, failed ones
+too, carries ``source`` (:func:`source_stamp`): the hash of the
+``repro_torch`` tree that wrote it and the torch version, since a
+record's counts follow both (DTensor picks other strategies in another
+version). ``--skip-existing`` keeps only an ``ok`` record of this tree
+and torch.
 """
 
 from __future__ import annotations
@@ -33,12 +40,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
+import hashlib
 import json
 import math
 import os
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -50,7 +60,7 @@ from repro_torch.configs import ARCH_IDS, get_config, input_specs, \
     resolve_for_mesh
 
 __all__ = ["PGBSC_CELLS", "run_cell", "trace_pgbsc", "trace_arch", "main",
-           "fake_world"]
+           "fake_world", "source_stamp"]
 
 PGBSC_CELLS = {
     # paper workloads: (graph n, directed edge slots, template)
@@ -61,6 +71,33 @@ PGBSC_CELLS = {
 }
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
+PACKAGE = Path(__file__).resolve().parents[1]
+
+
+def tree_hash(root: Path = PACKAGE) -> str:
+    """sha256 of a source tree's contents: each file's path relative to
+    ``root`` and its bytes, in sorted order (``__pycache__`` left out), so
+    the hash names the code whatever commit or checkout holds it."""
+    h = hashlib.sha256()
+    files = sorted(p for p in Path(root).rglob("*")
+                   if p.is_file() and "__pycache__" not in p.parts)
+    for p in files:
+        rel = p.relative_to(root).as_posix().encode()
+        data = p.read_bytes()
+        h.update(b"%d:%s%d:" % (len(rel), rel, len(data)))
+        h.update(data)
+    return h.hexdigest()
+
+
+@functools.lru_cache(maxsize=None)
+def _package_hash() -> str:
+    return tree_hash()
+
+
+def source_stamp() -> dict:
+    """What wrote a record: the ``repro_torch`` tree's :func:`tree_hash`
+    (taken once a process) and the running torch version."""
+    return {"tree": _package_hash(), "torch": torch.__version__}
 
 
 @contextlib.contextmanager
@@ -225,7 +262,19 @@ def _finalize(trace, chips: int, mf: float) -> dict:
                                if roof.flops else None),
         "extrapolation": None,
         "ran_whole": trace.whole,
+        "bookkeeping_bytes": trace.bookkeeping_bytes,
     }
+
+
+def _stamped_here(path: str) -> bool:
+    """Whether ``path`` holds an ``ok`` record this tree and torch
+    wrote."""
+    try:
+        with open(path) as f:
+            rec = json.load(f)
+    except (OSError, ValueError):
+        return False
+    return bool(rec.get("ok")) and rec.get("source") == source_stamp()
 
 
 def main(argv=None):
@@ -255,7 +304,7 @@ def main(argv=None):
             for mesh_kind in meshes:
                 tag = f"{arch_id}__{cell}__{mesh_kind}"
                 path = os.path.join(args.out, tag + ".json")
-                if args.skip_existing and os.path.exists(path):
+                if args.skip_existing and _stamped_here(path):
                     print(f"[skip] {tag}")
                     continue
                 print(f"[run ] {tag}", flush=True)
@@ -267,6 +316,7 @@ def main(argv=None):
                            "traceback": traceback.format_exc()[-4000:]}
                     n_fail += 1
                     print(f"[FAIL] {tag}: {e!r}", flush=True)
+                rec["source"] = source_stamp()
                 with open(path + ".tmp", "w") as f:
                     json.dump(rec, f, indent=1)
                 os.replace(path + ".tmp", path)
