@@ -4154,6 +4154,7 @@ def phase_train() -> tuple[dict, int]:
 
 DRYRUN_TIMEOUT_S = 420         # each of (Y2)'s launcher runs
 DRYRUN_PEAK_SLACK = (0.8, 1.25)  # the reference's own memory slack
+DRYRUN_RANK_BYTES = 80e9 * 1.25  # an H100's 80 GB, with that slack
 
 
 def _dryrun_vs_card(g) -> dict:
@@ -4235,11 +4236,12 @@ def _dryrun_vs_card(g) -> dict:
 def _dryrun_cli() -> None:
     """(Y2): ``python -m repro_torch.launch.dryrun`` on the card's host,
     as a user runs it: every PGBSC cell on both production meshes, then
-    llama3-8b ``decode_32k`` and nequip ``ogb_products`` (61.9M edges, a
-    strided shard of split factor ``E / 16``: DTensor's bookkeeping in
-    the tracer's closed forms) on the single mesh; each record's flops,
-    bytes and collective bytes a rank, dominant term and trace seconds.
-    Every PGBSC record and the nequip one must be ``ok``."""
+    llama3-8b ``decode_32k`` (with the reference's decode hints) and
+    nequip ``ogb_products`` (61.9M edges, a strided shard of split factor
+    ``E / 16``: DTensor's bookkeeping in the tracer's closed forms) on the
+    single mesh; each record's flops, bytes and collective bytes a rank,
+    dominant term, collectives and trace seconds. Every PGBSC record and
+    the nequip one must be ``ok``. Then :func:`_dryrun_moe`."""
     import shutil
     import tempfile
 
@@ -4291,6 +4293,51 @@ def _dryrun_cli() -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+DRYRUN_MOE_LAYERS = 2     # (Y2)'s qwen3-moe-30b-a3b, cut from 48 layers
+
+
+def _dryrun_moe() -> None:
+    """(Y2), last: qwen3-moe-30b-a3b ``train_4k`` (batch 256, 8
+    microbatches) on the single mesh at its registered widths (128
+    experts, top 8), its depth cut to :data:`DRYRUN_MOE_LAYERS` MoE layers
+    (deepseek-moe-16b ``prefill_32k`` takes 373 s to trace on the card's
+    host), traced in this process as the launcher traces a record: the
+    MoE dispatch per group (its groups split over ``data``) and the loss
+    as vocab reductions. Its argument + temp bytes must be under 80 GB x
+    1.25 (the parent's loss alone made a 79.7 GB replicated ``(B, S, V)``
+    zeros) and no ``index_add`` may run whole."""
+    import dataclasses
+
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train import op_sharding
+
+    full = get_config("qwen3-moe-30b-a3b")
+    arch = dataclasses.replace(full, model=dataclasses.replace(
+        full.model, n_layers=DRYRUN_MOE_LAYERS))
+    op_sharding.install()
+    t0 = time.perf_counter()
+    with dryrun.fake_world(256):
+        dev = hlo.trace_device(autograd=True)
+        mesh = dryrun._mesh((16, 16), ("data", "model"), dev)
+        rec = dryrun.trace_arch(dryrun._moe_grouped(arch, mesh), "train_4k",
+                                mesh, 256, dev)
+    m = rec["memory"]
+    total = m["argument_bytes"] + m["temp_bytes"]
+    whole = {k: v for k, v in rec["ran_whole"].items() if "index_add" in k}
+    print(f"[dryrun] Y2 qwen3-moe-30b-a3b/train_4k/single at "
+          f"{DRYRUN_MOE_LAYERS} of 48 layers (256 ranks, traced on "
+          f"{_device_line()}): argument + temp {total} B against "
+          f"{DRYRUN_RANK_BYTES:.0f} B; flops/rank "
+          f"{rec['roofline']['flops']:.6e} collectives {rec['collectives']};"
+          f" ran_whole {rec['ran_whole']}; trace {rec['compile_s']} s, "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    if total >= DRYRUN_RANK_BYTES or whole:
+        raise AssertionError(f"(Y2) qwen3-moe-30b-a3b train_4k: {total} B a "
+                             f"rank, index_add run whole {whole}")
+
+
 def _dryrun_t1(t1_peak: int) -> None:
     """(Y3): T1's smollm-360m step traced at a ``(1, 1)`` mesh at T1's
     microbatch shape (2 sequences of 4,096 tokens, bf16, remat) with 2 of
@@ -4336,6 +4383,7 @@ def phase_dryrun(g, t1_peak: int) -> dict:
     took["Y1"] = round(time.perf_counter() - t, 1)
     t = time.perf_counter()
     _dryrun_cli()
+    _dryrun_moe()
     took["Y2"] = round(time.perf_counter() - t, 1)
     t = time.perf_counter()
     _dryrun_t1(t1_peak)

@@ -52,8 +52,10 @@ redistributions logged: a view that splits a dim held split over a mesh
 dim the new shape does not divide is retried with the dims it changes
 made whole; an op with no sharding strategy (``index_add_``), an
 in-place op DTensor cannot place (a ``scatter_`` along a split dim), or
-one whose sharding propagation fails, runs on every rank on gathered
-inputs (:attr:`StepTrace.whole` counts them).
+one whose sharding propagation some torch refuses (``_MAY_REFUSE``),
+runs on every rank on gathered inputs (:attr:`StepTrace.whole` counts
+them). The scatters the models run on split edges, tokens or vocab have
+sharding rules of their own (``train/op_sharding``).
 A kernel op's fake implementation names the scratch its CUDA path holds
 (:func:`note_scratch`). Without a CUDA build of torch (a CPU wheel) a
 fake CUDA tensor still computes, but ``Tensor.__getitem__`` /
@@ -320,9 +322,11 @@ class _RankZero(TorchDispatchMode):
                 return self._whole(func, args, kwargs)
             if _mutates_first(func):
                 return self._in_place(func, args, kwargs)
+            if func in _MAY_REFUSE:
+                return self._split_or_whole(func, args, kwargs)
             # DTensor's dispatcher runs the local ops (and the
             # redistributions) under this mode: log those instead
-            return self._split_or_whole(func, args, kwargs)
+            return NotImplemented
         if self.paused:
             out = func(*args, **kwargs)
             real = [t.numel() * t.element_size() for t in tree_leaves(out)
@@ -390,11 +394,11 @@ class _RankZero(TorchDispatchMode):
         return self._redispatch(func, (x,) + tuple(args[1:]), kwargs)
 
     def _split_or_whole(self, func, args, kwargs):
-        """An op through DTensor, or whole (:meth:`_whole`) where DTensor's
-        sharding propagation refuses it: torch 2.11 refuses an ``index``
-        of a replicated table by ids split over two mesh dims (nequip's
-        species lookup on the multi-pod mesh), which 2.13 splits. What
-        the refused try logged is dropped."""
+        """An op of :data:`_MAY_REFUSE` through DTensor, or whole
+        (:meth:`_whole`) where DTensor's sharding propagation refuses it.
+        What the refused try logged is dropped. Every other op goes to
+        DTensor once, unwatched: a second dispatch of each op through this
+        mode cost a reduced nequip trace an eighth of its seconds."""
         logged = len(self.trace.ops)
         try:
             return self._redispatch(func, args, kwargs)
@@ -468,6 +472,13 @@ class _RankZero(TorchDispatchMode):
 def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+# ops whose sharding propagation some torch refuses on the grid's
+# placements: torch 2.11 an ``index`` of a replicated table by ids split
+# over two mesh dims (nequip's species lookup on the multi-pod mesh),
+# which 2.13 splits
+_MAY_REFUSE = {torch.ops.aten.index.Tensor}
 
 
 @functools.lru_cache(maxsize=None)

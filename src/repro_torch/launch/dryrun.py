@@ -58,6 +58,7 @@ from repro_torch.analysis.roofline import (H100_SXM, model_flops,
                                            roofline_from_trace)
 from repro_torch.configs import ARCH_IDS, get_config, input_specs, \
     resolve_for_mesh
+from repro_torch.configs.shapes import decode_hint_specs
 
 __all__ = ["PGBSC_CELLS", "run_cell", "trace_pgbsc", "trace_arch", "main",
            "fake_world", "source_stamp"]
@@ -127,6 +128,8 @@ def _mesh(shape, axes, device: torch.device):
 
 
 def run_cell(arch_id: str, cell_name: str, mesh_kind: str) -> dict:
+    from repro_torch.train import op_sharding
+    op_sharding.install()
     shape, axes = MESHES[mesh_kind]
     chips = math.prod(shape)
     t0 = time.time()
@@ -177,7 +180,9 @@ def cell_step(arch, cell_name: str, mesh, device, *,
     on ``mesh`` at the reference's specs (plain tensors on a one-rank
     mesh), each rank's shard an empty tensor on ``device``. Call inside
     the fake mode. A train step takes ``microbatches`` (default
-    :func:`_microbatches_for`)."""
+    :func:`_microbatches_for`); an LM's decode step takes the reference's
+    decode hints (``configs/shapes.decode_hint_specs``), as its
+    ``_lower_cell`` passes them."""
     from repro_torch.train import step as st
     cell = arch.cell(cell_name)
     meta_batch, bspecs, statics = input_specs(arch, cell_name)
@@ -197,7 +202,11 @@ def cell_step(arch, cell_name: str, mesh, device, *,
         return step, (state, batch), (params, moments, batch)
     kind = cell.kind if cell.kind in ("prefill", "decode",
                                       "retrieval") else "serve"
-    serve = st.build_serve_step(arch, kind, statics=statics)
+    hints = None
+    if arch.family == "lm" and cell.kind == "decode":
+        hints = resolve_for_mesh(decode_hint_specs(arch, cell), mesh)
+    serve = st.build_serve_step(arch, kind, statics=statics,
+                                shard_hints=hints)
     return serve, (state["params"], batch), (params, batch)
 
 

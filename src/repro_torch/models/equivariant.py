@@ -42,9 +42,25 @@ PATHS = [(0, 0, 0), (0, 1, 1), (0, 2, 2),
 
 
 # ---------------------------------------------------------------- tensor ops
+class _Trace(torch.autograd.Function):
+    """The trace of each trailing 3 x 3 block. Its gradient is the
+    incoming one on the diagonal and zeros elsewhere, made elementwise:
+    ``diagonal``'s own backward takes the input's sizes as an argument,
+    which a DTensor rank gets whole beside its shard of the gradient."""
+
+    @staticmethod
+    def forward(ctx, s):
+        return s.diagonal(dim1=-2, dim2=-1).sum(-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        eye = torch.eye(3, dtype=torch.bool, device=grad.device)
+        return torch.where(eye, grad[..., None, None], 0)
+
+
 def sym_traceless(m):
     s = 0.5 * (m + m.transpose(-1, -2))
-    tr = s.diagonal(dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    tr = _Trace.apply(s)[..., None, None]
     return s - tr * torch.eye(3, dtype=m.dtype, device=m.device) / 3.0
 
 

@@ -37,16 +37,27 @@ __all__ = ["segment_sum", "segment_mean", "segment_std", "segment_max",
 
 
 # ------------------------------------------------------------ segment utils
+def _zeros(like, rows: int):
+    """Zeros of ``(rows,) + like.shape[1:]`` in ``like``'s dtype, as one
+    row expanded: an out-of-place scatter into it makes the one buffer
+    it returns (a fresh zero buffer would be a second)."""
+    rest = tuple(like.shape[1:])
+    return like.new_zeros((1,) + rest).expand((rows,) + rest)
+
+
 class _SegmentSum(torch.autograd.Function):
     """``index_add`` whose backward keeps only the segment ids: autograd's
     own ``index_add`` keeps its source, which for a gathered ``(E, d)``
-    message is the largest tensor of a GNN step."""
+    message is the largest tensor of a GNN step. The add is out of place
+    (:func:`_zeros`): on DTensors split over the edges it is a partial sum
+    a rank (``train/op_sharding``), which an in-place add into a
+    replicated buffer cannot be."""
 
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments):
         ctx.save_for_backward(segment_ids)
-        return data.new_zeros((num_segments,) + tuple(data.shape[1:])) \
-            .index_add_(0, segment_ids, data)
+        return torch.index_add(_zeros(data, num_segments), 0, segment_ids,
+                               data)
 
     @staticmethod
     def backward(ctx, grad):
@@ -60,12 +71,16 @@ def segment_sum(data, segment_ids, num_segments: int):
 
 def segment_counts(segment_ids, num_segments: int) -> torch.Tensor:
     """Rows per segment, int64 (``bincount`` with ``minlength`` of ids
-    below ``num_segments``), as an ``index_add_`` of ones: its output's
+    below ``num_segments``), as an ``index_add`` of ones: its output's
     shape does not depend on the ids' values, which a traced step
-    (``analysis/hlo``) needs."""
-    return torch.zeros(num_segments, dtype=torch.int64,
-                       device=segment_ids.device).index_add_(
-        0, segment_ids, torch.ones_like(segment_ids, dtype=torch.int64))
+    (``analysis/hlo``) needs. Out of place, as :func:`segment_sum`; the
+    ones add in float64 (exact below 2**53): on a mesh whose edges are
+    split each rank's count is a partial sum, and DTensor makes the
+    replicated zero buffer partial by dividing it, which an integer
+    buffer cannot take."""
+    ones = torch.ones_like(segment_ids, dtype=torch.float64)
+    return torch.index_add(_zeros(ones, num_segments), 0, segment_ids,
+                           ones).long()
 
 
 def _counts(segment_ids, num_segments: int, like):
@@ -87,15 +102,48 @@ def segment_std(data, segment_ids, num_segments: int, eps: float = 1e-5):
     return torch.sqrt(torch.clamp(sq - mean * mean, min=0.0) + eps)
 
 
+class _SegmentMax(torch.autograd.Function):
+    """``scatter_reduce(..., "amax")`` of ``data``'s rows into a ``-inf``
+    buffer, with autograd's own gradient for it (``scatter_reduce``'s
+    backward, op for op: tied rows share a segment's gradient), whose
+    edge-sized tensors are kept at ``data``'s placements: on a DTensor
+    mesh autograd's backward meets the edge-split source with the edge
+    stream gathered whole."""
+
+    @staticmethod
+    def forward(ctx, data, idx, num_segments):
+        out = data.new_full((num_segments,) + tuple(data.shape[1:]),
+                            float("-inf"))
+        mx = out.scatter_reduce(0, idx, data, "amax", include_self=True)
+        ctx.save_for_backward(data, idx, mx)
+        return mx
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, idx, mx = ctx.saved_tensors
+        hit = data == _placed_as(mx.gather(0, idx), data)
+        # the -inf buffer counts where it is the result: empty segments
+        n = (mx == float("-inf")).to(data.dtype)
+        n = n + torch.scatter_add(data.new_zeros(n.shape), 0, idx,
+                                  hit.to(data.dtype))
+        return hit * _placed_as((grad / n).gather(0, idx), data), None, None
+
+
+def _placed_as(x, like):
+    """``x`` at ``like``'s placements where both are DTensors."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and isinstance(like, DTensor) \
+            and x.placements != like.placements:
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
 def segment_max(data, segment_ids, num_segments: int):
     """Per-segment max over rows; an empty segment gives 0 (the reference
     takes ``jax.ops.segment_max``'s ``-inf`` there to 0), and no gradient
     reaches it. Tied rows share the gradient, as in JAX."""
     idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1))
-    out = data.new_full((num_segments,) + tuple(data.shape[1:]),
-                        float("-inf"))
-    mx = out.scatter_reduce(0, idx.expand_as(data), data, "amax",
-                            include_self=True)
+    mx = _SegmentMax.apply(data, idx.expand_as(data), num_segments)
     return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
 
 

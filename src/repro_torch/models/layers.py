@@ -28,7 +28,7 @@ from torch import nn
 __all__ = [
     "rms_norm", "RMSNorm", "rope", "Attention", "attention",
     "decode_attention", "prefill_attention", "MLP", "mlp_swiglu", "silu",
-    "draw_normal",
+    "draw_normal", "constrain", "lookup", "gather",
 ]
 
 _NEG_INF = -1e30
@@ -61,6 +61,150 @@ def settle(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _Lookup(torch.autograd.Function):
+    """``F.embedding(ids, table)`` with any pending reduction applied
+    (:func:`settle`). Its gradient is ``F.embedding``'s own on a plain
+    table (``embedding_dense_backward``, bit for bit). On a DTensor table
+    split along its rows (a vocab-split embedding) each rank adds the
+    gradient rows of the ids in its own range into its own rows, a
+    partial sum over the ranks that split the ids, where DTensor's own
+    backward makes the whole table's gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(table, ids)
+        return settle(F.embedding(ids, table))
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, ids = ctx.saved_tensors
+        if not split_along(table, 0):
+            return torch.ops.aten.embedding_dense_backward(
+                grad, ids, table.shape[0], -1, False), None
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        mesh = table.device_mesh
+        # ids and their gradient whole over the mesh dims that split the
+        # table, each rank's rows of them over the others
+        rest = tuple(p if isinstance(p, Shard) and p.dim < ids.dim()
+                     and not t.is_shard() else Replicate()
+                     for p, t in zip(grad.placements, table.placements))
+        g_l = grad.redistribute(mesh, rest).to_local()
+        i_l = ids.redistribute(mesh, rest).to_local()
+        lo, rows = _split_range(table, 0)
+        own = (i_l >= lo) & (i_l < lo + rows)
+        local = torch.ops.aten.embedding_dense_backward(
+            torch.where(own[..., None], g_l, 0), torch.where(own, i_l - lo, 0),
+            rows, -1, False)
+        places = tuple(t if t.is_shard() else
+                       Partial() if r.is_shard() else Replicate()
+                       for t, r in zip(table.placements, rest))
+        return DTensor.from_local(local, mesh, places, run_check=False,
+                                  shape=table.shape,
+                                  stride=table.stride()), None
+
+
+class _Gather(torch.autograd.Function):
+    """``src.gather(dim, index)``, whose gradient is scattered into zeros
+    of ``src``'s own placements: ``gather``'s own backward (``new_zeros``
+    of the input's shape, then ``scatter_add_``, which this is on a plain
+    tensor, bit for bit) makes those zeros at the global shape on every
+    rank of a DTensor mesh (a MoE's groups, an LM's ``(B, S, V)``
+    logits). On a DTensor the scatter is out of place, which DTensor can
+    place."""
+
+    @staticmethod
+    def forward(ctx, src, dim, index):
+        ctx.save_for_backward(src, index)
+        ctx.dim = dim
+        return src.gather(dim, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        src, index = ctx.saved_tensors
+        zeros = torch.zeros_like(src)
+        if is_dtensor(src):
+            return torch.scatter_add(zeros, ctx.dim, index, grad), None, None
+        return zeros.scatter_add_(ctx.dim, index, grad), None, None
+
+
+def gather(src: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``src.gather(dim, index)`` (:class:`_Gather`)."""
+    return _Gather.apply(src, dim, index)
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table``, settled (:class:`_Lookup`)."""
+    return _Lookup.apply(table, ids.long())
+
+
+def constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """The reference's ``_constrain``: a DTensor ``x`` redistributed to
+    the placements of ``spec`` (a ``PartitionSpec`` over the mesh's axis
+    names, :func:`repro_torch.train.sharding.spec_to_placements`; a split
+    over a one-rank mesh dim is no split). A plain tensor, or no spec,
+    comes back as it is: one card is untouched."""
+    if spec is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    from repro_torch.train.sharding import spec_to_placements
+    mesh = x.device_mesh
+    places = tuple(Replicate() if mesh.size(i) == 1 else p for i, p in
+                   enumerate(spec_to_placements(mesh, spec, x.shape)))
+    if tuple(x.placements) == places:
+        return x
+    return x.redistribute(mesh, places)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def split_along(x: torch.Tensor, dim: int) -> bool:
+    """Whether ``x`` is a DTensor whose dim ``dim`` is split over some
+    mesh dim."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return False
+    dim %= x.dim()
+    return any(isinstance(p, Shard) and p.dim == dim for p in x.placements)
+
+
+def _split_range(x, dim: int) -> tuple[int, int]:
+    """(this rank's first index, its count) along dim ``dim`` of the
+    DTensor ``x``, split evenly in mesh order."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    coord, lo, size = mesh.get_coordinate(), 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(i)
+            lo += coord[i] * size
+    return lo, size
+
+
+def map_split(like, fn, *others):
+    """``fn`` on this rank's shard of the DTensor ``like`` (split along its
+    last dim) -> a DTensor of ``like``'s shape and placements. ``fn`` takes
+    the local shard, the ``others`` (each of ``like``'s shape with 1 in the
+    last dim) as local tensors at ``like``'s placements but whole along the
+    last dim, and the shard's first index along it. Each rank computes only
+    its slice along the split dim, as XLA partitions an elementwise op of
+    a split tensor and a broadcast one; DTensor's own broadcast can gather
+    the split tensor instead."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, places = like.device_mesh, like.placements
+    last = like.dim() - 1
+    rest = tuple(Replicate() if p.is_partial() or isinstance(p, Shard)
+                 and p.dim == last else p for p in places)
+    local = fn(like.to_local(),
+               *(o.redistribute(mesh, rest).to_local() for o in others),
+               _split_range(like, last)[0])
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def write_rows_(cache: torch.Tensor, dim: int, at: torch.Tensor,
                 new: torch.Tensor) -> torch.Tensor:
     """``cache.index_copy_(dim, at, new)``, in place. On a DTensor cache
@@ -78,13 +222,7 @@ def write_rows_(cache: torch.Tensor, dim: int, at: torch.Tensor,
         return cache
     mesh, places = cache.device_mesh, cache.placements
     local = cache.to_local()
-    # this rank's first row along dim (split in mesh order)
-    coord, lo, size = mesh.get_coordinate(), 0, cache.shape[dim]
-    for i, p in enumerate(places):
-        if isinstance(p, Shard) and p.dim == dim:
-            size //= mesh.size(i)
-            lo += coord[i] * size
-    rows = local.shape[dim]
+    lo, rows = _split_range(cache, dim)
     new_local = new.redistribute(mesh, [
         Replicate() if isinstance(p, Shard) and p.dim == dim else p
         for p in places]).to_local()
@@ -267,9 +405,11 @@ def _blocked_attention(q, k, v, scale, window, is_global, q_chunk, kv_chunk):
     update leaves (m, l, acc) exactly as they were."""
     b, s, h, dh = q.shape
     nq, nk = -(-s // q_chunk), -(-s // kv_chunk)
-    q = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - s))
-    k = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - s))
-    v = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - s))
+    if nq * q_chunk != s:       # no pad of nothing: torch 2.11's DTensor
+        q = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - s))    # misplans it
+    if nk * kv_chunk != s:
+        k = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - s))
+        v = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - s))
     qa = torch.arange(q_chunk, device=q.device)
     ka = torch.arange(kv_chunk, device=q.device)
     outs = []
@@ -321,26 +461,38 @@ def decode_attention(p: Attention, x: torch.Tensor, cache_k, cache_v,
     last row, as ``dynamic_update_slice`` clamps), and the same tensors are
     returned. The query heads are grouped by kv head; the cache is never
     repeated. Softmax over the cache axis in f32; positions past
-    ``cache_len`` masked. ``shard_hints`` (the reference's sharding
-    constraints for a sequence-sharded cache) has no meaning on one card:
-    it is accepted and ignored.
+    ``cache_len`` masked. ``shard_hints`` (``{"cache": spec, "logits":
+    spec}``, the reference's) pins the cache the attention reads and the
+    scaled logits ``(B, Hkv, G, 1, S)`` to their specs (:func:`constrain`)
+    where the reference pins them: on a sequence-split cache the logits
+    stay split over the sequence and the values' product is a partial sum
+    over it (flash-decoding), where the head-split query would otherwise
+    meet the cache by gathering it whole in every layer. On plain tensors
+    the hints change nothing.
     """
+    hints = shard_hints or {}
     b = x.shape[0]
     s_max = cache_k.shape[1]
     cache_len = torch.as_tensor(cache_len, device=x.device)
     positions = cache_len.reshape(1, 1).expand(b, 1)
     q, k_new, v_new = _qkv(p, x, positions, theta, use_qk_norm)
+    # a pending sum on the query meets the split cache reduced, not by
+    # gathering the cache (DTensor's choice)
+    q = settle(q)
 
     at = cache_len.clamp(0, s_max - 1).reshape(1).long()
     write_rows_(cache_k, 1, at, k_new.to(cache_k.dtype))
     write_rows_(cache_v, 1, at, v_new.to(cache_v.dtype))
 
-    logits = _grouped_logits(q, cache_k, n_kv, d_head) * d_head ** -0.5
+    kk = constrain(cache_k, hints.get("cache"))
+    vv = constrain(cache_v, hints.get("cache"))
+    logits = constrain(_grouped_logits(q, kk, n_kv, d_head) * d_head ** -0.5,
+                       hints.get("logits"))
     kpos = torch.arange(s_max, device=x.device)
     ok = _mask_ok(cache_len, kpos, window, is_global)
     logits = torch.where(ok, logits, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
-    out = _grouped_values(probs, cache_v, n_heads)
+    probs = torch.softmax(logits, dim=-1).to(vv.dtype)
+    out = _grouped_values(probs, vv, n_heads)
     return _out_proj(out, p.wo), cache_k, cache_v
 
 

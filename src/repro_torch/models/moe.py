@@ -6,11 +6,13 @@ request), and each group dispatches into its own ``(E, C, D)`` buffer
 with per-group capacity ``C = max(1, int(cf * T_g * K / E))``:
 overflowing (token, k) slots are dropped, and the residual stream carries
 them. Queue positions come from a stable sort of the slot -> expert ids and
-a running maximum of the run starts (``torch.cummax``); the dispatch is one
-``index_add_`` into ``(G, E*C + 1, D)`` whose extra row, the overflow bin,
-is cut off afterwards. Each kept slot receives exactly one token, so the
-sum is exact in any order. The aux loss is Switch Transformer's, on the
-top-1 choice.
+a running maximum of the run starts (``torch.cummax``); the dispatch
+scatter-adds each group's tokens along dim 1 of ``(G, E*C + 1, D)`` (the
+reference's per-group ``segment_sum``), whose extra row, the overflow bin,
+is cut off afterwards, so the group dim stays a batch dim: split over the
+data axes on a mesh, each rank scatters only its own groups. Each kept slot
+receives exactly one token, so the sum is exact in any order. The aux
+loss is Switch Transformer's, on the top-1 choice.
 
 The router parameter stays f32 in a bf16 model, as in the reference.
 """
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import MLP, draw_normal, mlp_swiglu, silu
+from repro_torch.models.layers import (MLP, draw_normal, gather,
+                                       mlp_swiglu, silu)
 
 __all__ = ["MoE", "moe_ffn", "route", "pick_groups"]
 
@@ -65,7 +68,7 @@ def route(p: MoE, xg: torch.Tensor, top_k: int):
     probs = torch.softmax(logits, dim=-1)
     gate_idx = torch.sort(probs, dim=-1, descending=True,
                           stable=True).indices[..., :top_k]
-    gate_vals = probs.gather(-1, gate_idx)
+    gate_vals = gather(probs, -1, gate_idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     return probs, gate_vals, gate_idx
@@ -95,18 +98,22 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
     is_start = torch.ones_like(ids, dtype=torch.bool)
     is_start[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
     run_start = torch.cummax(torch.where(is_start, iota, 0), dim=1).values
-    pos = torch.empty_like(ids).scatter_(1, order, iota - run_start)
+    # into a tensor placed as the permutation (ids may be split along the
+    # slots, which a scatter along them cannot keep in place)
+    pos = torch.empty_like(order).scatter_(1, order, iota - run_start)
     pos = pos.reshape(g, t_g, top_k)
     keep = pos < capacity
 
     # dispatch: (G, E*C + 1, D) with the overflow bin last
     slot = gate_idx * capacity + torch.clamp(pos, max=capacity - 1)
     slot = torch.where(keep, slot, e * capacity)
-    width = e * capacity + 1
-    flat = (slot + width * torch.arange(g, device=x.device)[:, None, None])
-    xk = xg[:, :, None, :].expand(g, t_g, top_k, d).reshape(-1, d)
-    buf = x.new_zeros((g * width, d)).index_add_(0, flat.reshape(-1), xk)
-    buf = buf.reshape(g, width, d)[:, :-1].reshape(g, e, capacity, d)
+    xk = xg[:, :, None, :].expand(g, t_g, top_k, d).reshape(g, n_slots, d)
+    at = slot.reshape(g, n_slots, 1).expand(g, n_slots, d)
+    # zeros at xg's placements (the groups split alike), one slot
+    # expanded: the out-of-place scatter makes the only buffer
+    zeros = torch.zeros_like(xg[:, :1]).expand(g, e * capacity + 1, d)
+    buf = torch.scatter_add(zeros, 1, at, xk)
+    buf = buf[:, :-1].reshape(g, e, capacity, d)
 
     # expert compute: einsum("gecd,edf->gecf") as a batched product over E
     be = buf.transpose(0, 1).reshape(e, g * capacity, d)
@@ -116,8 +123,8 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
     # combine: gather each kept slot's output, weight by its gate
     y_flat = y.reshape(g, e * capacity, d)
     take = torch.where(keep, gate_idx * capacity + pos, 0)
-    gathered = y_flat.gather(
-        1, take.reshape(g, -1, 1).expand(-1, -1, d)).reshape(g, t_g, top_k, d)
+    gathered = gather(y_flat, 1, take.reshape(g, -1, 1).expand(-1, -1, d)
+                      ).reshape(g, t_g, top_k, d)
     gathered = torch.where(keep[..., None], gathered, 0.0)
     out = (gathered * gate_vals[..., None].to(gathered.dtype)).sum(2)
     out = out.reshape(b, s, d)

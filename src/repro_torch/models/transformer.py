@@ -25,7 +25,6 @@ the same dict, where the reference returns a new one.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -127,13 +126,14 @@ class Block(nn.Module):
         return self._ffn_residual(x, h)[0]
 
     def decode(self, x, cache_k, cache_v, cache_len, is_global, *,
-               window: bool = True):
+               window: bool = True, shard_hints: dict | None = None):
         """One decode step of the block; ``window=False`` drops the window
         (the dense front, as in the reference)."""
         c = self.cfg
         h, _, _ = L.decode_attention(
             self.attn, L.rms_norm(self.ln1, x, c.norm_eps), cache_k, cache_v,
-            cache_len, is_global=is_global, **self._attn_kw(window))
+            cache_len, is_global=is_global, shard_hints=shard_hints,
+            **self._attn_kw(window))
         return self._ffn_residual(x, h)[0]
 
 
@@ -180,11 +180,12 @@ def lm_forward(model: LM, tokens: torch.Tensor, *, q_chunk: int = 1024,
                kv_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) f32, aux_loss). Attention runs
     full up to ``max(q_chunk, kv_chunk)`` tokens, blocked beyond (the
-    reference's 1024 by default). The embedding lookup is ``F.embedding``,
-    whose backward sums a repeated token's rows in a fixed order on the
-    CPU (an indexed gather's adds in any order)."""
+    reference's 1024 by default). The embedding lookup is ``F.embedding``
+    (:func:`~repro_torch.models.layers.lookup`), whose backward sums a
+    repeated token's rows in a fixed order on the CPU (an indexed gather's
+    adds in any order)."""
     cfg = model.cfg
-    x = L.settle(F.embedding(tokens.long(), model.embed))
+    x = L.lookup(model.embed, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     blocks = [(b, 1.0) for b in model.dense_front] + list(zip(
@@ -199,16 +200,52 @@ def lm_forward(model: LM, tokens: torch.Tensor, *, q_chunk: int = 1024,
     return model.head(x), aux_total
 
 
+class _SplitNLL(torch.autograd.Function):
+    """``logsumexp(logits) - logits[..., t]`` on a DTensor split along the
+    vocab, as the reference's reductions over the vocab axis: a max and a
+    sum of exponentials, each a partial result reduced over the split,
+    and the target's logit a masked partial gather (DTensor's own
+    ``logsumexp`` gathers the vocab first). The gradient, ``softmax x
+    grad`` less ``grad`` at the target, is made on each rank's slice of
+    the vocab, in one tensor of the logits' placements."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        idx = targets.long()[..., None]
+        m = logits.amax(-1, keepdim=True)
+        lse = (logits - m).exp_().sum(-1).log() + m[..., 0]
+        ctx.save_for_backward(logits, lse, idx)
+        return lse - L.settle(logits.gather(-1, idx))[..., 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, idx = ctx.saved_tensors
+
+        def local(x, s, i, g, lo):
+            own = (i >= lo) & (i < lo + x.shape[-1])
+            return (x - s).exp_().mul_(g).scatter_add_(
+                -1, torch.where(own, i - lo, 0), torch.where(own, -g, 0))
+        return L.map_split(logits, local, lse[..., None], idx,
+                           grad[..., None]), None
+
+
 def lm_loss(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
             aux_weight: float = 0.01) -> torch.Tensor:
-    """Cross entropy as logsumexp minus the target's logit (the one-hot
-    contraction of the reference, taken as a gather: the same value and
-    gradient), plus ``aux_weight`` times the MoE aux loss."""
+    """Cross entropy as reductions over the vocab axis (logsumexp minus
+    the target's logit), plus ``aux_weight`` times the MoE aux loss. With
+    the logits split over the vocab (a vocab-split ``lm_head``) it is
+    :class:`_SplitNLL`, so no rank holds logits, or their gradient, of
+    the whole vocabulary; else ``torch.logsumexp`` less the target's
+    logit taken as a gather (the one-hot contraction's value, and its
+    gradient bit for bit on a plain tensor, :func:`~repro_torch.models.
+    layers.gather`)."""
     logits, aux = lm_forward(model, tokens)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt_logit = L.settle(
-        logits.gather(-1, targets.long()[..., None]))[..., 0]
-    return (lse - tgt_logit).mean() + aux_weight * aux
+    if L.split_along(logits, -1):
+        nll = _SplitNLL.apply(logits, targets)
+    else:
+        tgt = L.gather(logits, -1, targets.long()[..., None])
+        nll = torch.logsumexp(logits, dim=-1) - L.settle(tgt)[..., 0]
+    return nll.mean() + aux_weight * aux
 
 
 # ------------------------------------------------------------------ serving
@@ -243,18 +280,20 @@ def lm_decode_step(model: LM, cache: dict, token: torch.Tensor,
     """token (B, 1) -> (logits (B, 1, V) f32, cache). The cache is written
     in place at ``cache["len"]``, which is then advanced, and the same dict
     is returned. The dense front attends without a window.
-    ``shard_hints`` is accepted and ignored (one card; see
-    :func:`~repro_torch.models.layers.decode_attention`)."""
+    ``shard_hints`` goes to every block's attention
+    (:func:`~repro_torch.models.layers.decode_attention`); on plain
+    tensors it changes nothing."""
     cfg = model.cfg
-    x = L.settle(F.embedding(token.long(), model.embed))
+    x = L.lookup(model.embed, token)
     cache_len = cache["len"]
     for i, block in enumerate(model.dense_front):
         x = block.decode(x, cache["k_front"][i], cache["v_front"][i],
-                         cache_len, None, window=False)
+                         cache_len, None, window=False,
+                         shard_hints=shard_hints)
     flags = window_flags(cfg, len(model.layers))
     for i, block in enumerate(model.layers):
         x = block.decode(x, cache["k"][i], cache["v"][i], cache_len,
-                         flags[i])
+                         flags[i], shard_hints=shard_hints)
     cache["len"] = cache_len + 1
     return model.head(x), cache
 
@@ -278,8 +317,7 @@ def lm_prefill_chunked(model: LM, tokens: torch.Tensor, cache: dict,
                          f"{chunk}")
     flags = window_flags(cfg, len(model.layers))
     for c0 in range(0, s, chunk):
-        x = L.settle(F.embedding(tokens[:, c0:c0 + chunk].long(),
-                                 model.embed))
+        x = L.lookup(model.embed, tokens[:, c0:c0 + chunk])
         for i, block in enumerate(model.dense_front):
             x = block.prefill(x, cache["k_front"][i], cache["v_front"][i],
                               c0, 1.0)

@@ -357,9 +357,13 @@ def distribute_state(state: dict, mesh, specs: dict, device) -> dict:
     stacked spec without the stacked dim (:func:`_slots`). The state is
     :func:`abstract_train_state`'s (meta): each rank's shards are empty
     tensors on ``device`` (fake ones under a fake mode); on a one-rank
-    mesh plain tensors. Returns ``state``."""
+    mesh plain tensors. The scatters' sharding rules
+    (:func:`repro_torch.train.op_sharding.install`) are registered with
+    DTensor first. Returns ``state``."""
     from repro_torch.configs.shapes import PartitionSpec as P
+    from repro_torch.train import op_sharding
     from repro_torch.train.sharding import _spec_leaves
+    op_sharding.install()
     model, opt = state["params"], state["opt"]
     flat = dict(_spec_leaves(specs))
     by_name = {}

@@ -48,6 +48,7 @@ def main(argv=None) -> int:
         cs.phase_build()
         cs._dryrun_vs_card(grid_2d(1024, 1024))
         cs._dryrun_cli()
+        cs._dryrun_moe()
         if t1_peak is not None:
             cs._dryrun_t1(t1_peak)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
